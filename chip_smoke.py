@@ -16,6 +16,8 @@ Phases, each printing one JSON line:
    is verified on the host with the port's python-int ECDSA verifier;
    the kernel launch counters are zeroed just before the sign and must
    show launches at both widths, and the plain version none.
+4. golden — the B=2 case of the JAX engine's committed golden signed on
+   the card: (r, s, recovery, ok) must match byte for byte.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
@@ -34,6 +36,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+GOLDEN = ROOT / "mpcium_tpu_torch" / "data" / "goldens" / "gg18_paillier_b2_1024.json"
 
 # H100 SXM peaks for the bound: HBM3 at 3.35 TB/s (NVIDIA data sheet), and
 # 32-bit integer multiply-add at 64 per clock per SM (CUDA C++ Programming
@@ -185,6 +188,45 @@ def run_slice(B: int, cohorts: int, seed: int, pre, K):
     return by_width
 
 
+def check_golden(device: str = "cuda") -> None:
+    """The port on the card against the JAX engine's committed signatures:
+    same keys, digests and seeded stream (B=2, 1024-bit fixture), so every
+    byte of (r, s, recovery, ok) must match."""
+    import numpy as np
+    import torch
+
+    from mpcium_tpu_torch.cluster import load_test_preparams
+    from mpcium_tpu_torch.engine import gg18_batch as gb
+    from mpcium_tpu_torch.utils.rng import SeededStream
+
+    g = json.loads(GOLDEN.read_text())
+    case = g["cases"][0]
+    shares = gb.dealer_keygen_secp_batch(
+        case["B"], g["universe"], g["threshold"], rng=SeededStream(case["keygen_seed"])
+    )
+    signer = gb.GG18BatchCoSigners(
+        g["quorum"], [shares[g["universe"].index(p)] for p in g["quorum"]],
+        load_test_preparams(1024), dom=gb.Domains(**g["domains"]),
+        rng=SeededStream(case["sign_seed"]), device=device,
+    )
+    digests = np.array([list(bytes.fromhex(d)) for d in case["digests"]], np.uint8)
+    t0 = time.perf_counter()
+    out = signer.sign(digests, cohorts=case["cohorts"])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    got = {
+        "r": [bytes(x).hex() for x in out["r"]],
+        "s": [bytes(x).hex() for x in out["s"]],
+        "recovery": [int(v) for v in out["recovery"]],
+        "ok": [bool(v) for v in out["ok"]],
+    }
+    same = all(got[k] == case[k] for k in got)
+    emit({"phase": "golden", "B": case["B"], "cohorts": case["cohorts"],
+          "matches_jax_golden": same, "sign_s": time.perf_counter() - t0})
+    if not same:
+        raise AssertionError("signatures differ from the JAX engine's golden")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=1024, help="sessions B")
@@ -225,6 +267,7 @@ def main() -> int:
     pre = load_test_preparams(2048)
     widths = kernel_vs_plain(1024, args.seed, pre, K, mm, bn)
     by_width = run_slice(args.batch, args.cohorts, args.seed, pre, K)
+    check_golden()
 
     kernels = []
     for n, rec in sorted(widths.items()):
