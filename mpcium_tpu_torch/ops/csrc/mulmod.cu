@@ -2,8 +2,11 @@
 //
 // Replaces the TPU kernel mpcium_tpu/ops/pallas_mulmod.py:_mulmod_kernel
 // (launched by pl.pallas_call in _mulmod_call). Same function: for
-// operands a, b < m given as 7-bit little-endian int32 limbs, the
-// canonical limbs of a·b mod m, zero-padded to the row width n.
+// normalized 7-bit little-endian int32 limbs a, b of row width n, the
+// canonical limbs of a·b mod m, zero-padded to n. The JAX kernel is exact
+// for a·b < R^occ·m (R = 2^7, occ = limbs of m), operands above m
+// included; this kernel is exact for every pair of normalized n-limb
+// operands, a superset of that domain.
 //
 // What bounds it on an H100: integer multiply throughput, not bytes. A
 // 4096-bit row moves 3·608·4 bytes but needs ~41k 32x32->64 word
@@ -15,19 +18,29 @@
 // runs Barrett reduction in radix 2^32 (HAC 14.42) with mu and m as word
 // arrays the host prepares once per modulus.
 //
+// Widths: m has k words; a row of n limbs spans kw = ceil(7n/32) >= k
+// words. The host passes mu = floor(2^(64·kw) / m) (2kw-k+1 words). A
+// row whose operands both fit in k words (every reduced operand) runs
+// Barrett at width k with mu's top k+1 words, which are exactly
+// floor(2^(64k) / m); a row with any bit at or above word k runs it at
+// width kw with the whole of mu. Either way x = a·b < 2^(64·width), so
+// the quotient estimate is at most 2 short and two conditional
+// subtractions finish the reduction.
+//
 // Layout: one block of 128 threads per row. Column sums of each product
 // are formed in parallel (a thread per column, 64-bit multiply-adds into
 // a 72-bit accumulator); carries, the Barrett subtraction and the final
-// conditional subtractions are resolved by one thread. That serial part
-// is the known cost of this first version: warpgroup MMA, TMA loads and
-// in-kernel exponent loops (a whole powmod per launch) are later work.
+// conditional subtractions are resolved by one thread. Warpgroup MMA,
+// TMA loads and in-kernel exponent loops (a whole powmod per launch) are
+// later work.
 //
 // C entry point (ctypes): returns cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define KMAX 136      // words of the widest modulus (n <= 608 limbs)
+#define KMAX 136      // words of the widest row (n <= 608 limbs)
+#define LMAX 160      // words of mu and of the quotient: 2kw-k+1 <= LMAX
 #define THREADS 128
 #define LIMB_BITS 7
 
@@ -73,19 +86,20 @@ __device__ void resolve(const uint64_t *lo, const uint32_t *hi, int ncols,
 __global__ void __launch_bounds__(THREADS)
 mulmod_kernel(const int *__restrict__ a, const int *__restrict__ b,
               int *__restrict__ out, const uint32_t *__restrict__ m,
-              const uint32_t *__restrict__ mu, int n, int k) {
-  __shared__ uint32_t A[KMAX], Bw[KMAX], M[KMAX], MU[KMAX + 1];
+              const uint32_t *__restrict__ mu, int n, int k, int kw) {
+  __shared__ uint32_t A[KMAX], Bw[KMAX], M[KMAX], MU[LMAX];
   __shared__ uint32_t X[2 * KMAX];
-  __shared__ uint32_t Q3[KMAX + 1], R[KMAX + 1];
-  __shared__ uint64_t lo[2 * KMAX + 2];
-  __shared__ uint32_t hi[2 * KMAX + 2];
+  __shared__ uint32_t Q3[LMAX], R[KMAX + 1];
+  __shared__ uint64_t lo[2 * LMAX];
+  __shared__ uint32_t hi[2 * LMAX];
 
   const size_t row = blockIdx.x;
   const int *ar = a + row * n;
   const int *br = b + row * n;
 
-  // repack 7-bit limbs into 32-bit words
-  for (int w = threadIdx.x; w < k; w += blockDim.x) {
+  // repack 7-bit limbs into 32-bit words; note any bit at or above word k
+  int wide = 0;
+  for (int w = threadIdx.x; w < kw; w += blockDim.x) {
     uint64_t va = 0, vb = 0;
     int bit0 = 32 * w;
     int l0 = bit0 / LIMB_BITS;
@@ -104,26 +118,29 @@ mulmod_kernel(const int *__restrict__ a, const int *__restrict__ b,
     }
     A[w] = (uint32_t)va;
     Bw[w] = (uint32_t)vb;
-    M[w] = m[w];
-    MU[w] = mu[w];
+    if (w >= k && (A[w] | Bw[w])) wide = 1;
   }
-  if (threadIdx.x == 0) MU[k] = mu[k];
+  for (int w = threadIdx.x; w < k; w += blockDim.x) M[w] = m[w];
+  for (int w = threadIdx.x; w < 2 * kw - k + 1; w += blockDim.x) MU[w] = mu[w];
+  wide = __syncthreads_or(wide);
+  const int kk = wide ? kw : k;    // Barrett width of this row
+  const int nq = 2 * kk - k + 1;   // words of q1, of its mu and of q3
+  const uint32_t *muk = MU + 2 * (kw - kk);  // floor(2^(64kk) / m)
+
+  // x = a·b (2kk words)
+  columns(A, kk, Bw, kk, 2 * kk - 1, lo, hi);
+  __syncthreads();
+  resolve(lo, hi, 2 * kk - 1, X, 0, 2 * kk);
   __syncthreads();
 
-  // x = a·b (2k words)
-  columns(A, k, Bw, k, 2 * k - 1, lo, hi);
+  // q3 = floor(floor(x / b^(k-1)) · mu / b^nq), nq words
+  columns(X + (k - 1), nq, muk, nq, 2 * nq - 1, lo, hi);
   __syncthreads();
-  resolve(lo, hi, 2 * k - 1, X, 0, 2 * k);
-  __syncthreads();
-
-  // q3 = floor(floor(x / b^(k-1)) · mu / b^(k+1)), k+1 words
-  columns(X + (k - 1), k + 1, MU, k + 1, 2 * k + 1, lo, hi);
-  __syncthreads();
-  resolve(lo, hi, 2 * k + 1, Q3, k + 1, k + 1);
+  resolve(lo, hi, 2 * nq - 1, Q3, nq, nq);
   __syncthreads();
 
   // r2 = q3·m mod b^(k+1)
-  columns(Q3, k + 1, M, k, k + 1, lo, hi);
+  columns(Q3, nq, M, k, k + 1, lo, hi);
   __syncthreads();
   resolve(lo, hi, k + 1, R, 0, k + 1);
   __syncthreads();
@@ -166,8 +183,10 @@ mulmod_kernel(const int *__restrict__ a, const int *__restrict__ b,
 extern "C" int mpcium_mulmod(const int *a, const int *b, int *out,
                              const unsigned *m, const unsigned *mu, int rows,
                              int n, int k, void *stream) {
-  if (k < 1 || k > KMAX || rows < 1) return (int)cudaErrorInvalidValue;
+  const int kw = (LIMB_BITS * n + 31) / 32;
+  if (k < 1 || kw < k || kw > KMAX || 2 * kw - k + 1 > LMAX || rows < 1)
+    return (int)cudaErrorInvalidValue;
   mulmod_kernel<<<rows, THREADS, 0, (cudaStream_t)stream>>>(
-      a, b, out, (const uint32_t *)m, (const uint32_t *)mu, n, k);
+      a, b, out, (const uint32_t *)m, (const uint32_t *)mu, n, k, kw);
   return (int)cudaGetLastError();
 }

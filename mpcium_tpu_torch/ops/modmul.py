@@ -17,7 +17,7 @@ normalized unless stated otherwise — the JAX package's layout.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -179,7 +179,7 @@ class MXUBarrett:
     the Barrett shift windows derive from the modulus' true occupancy.
     """
 
-    def __init__(self, modulus: int, n_limbs: Optional[int] = None, device=None):
+    def __init__(self, modulus: int, device=None):
         from ..device import resolve
 
         self.device = resolve(device)
@@ -187,9 +187,7 @@ class MXUBarrett:
         self.modulus = modulus
         mb = modulus.bit_length()
         occ = -(-mb // LIMB_BITS)
-        self.prof = (
-            bn.LimbProfile(bits=LIMB_BITS, n_limbs=n_limbs) if n_limbs else profile(mb)
-        )
+        self.prof = profile(mb)
         n = self.prof.n_limbs
         assert occ <= n
         self.occ = occ

@@ -7,6 +7,11 @@ counterpart of ``mpcium_tpu/ops/modmul._mm``: a CUDA tensor launches the
 kernel in ``csrc/mulmod.cu`` (or raises), a CPU tensor takes
 :func:`mulmod_plain`. There is no switch and no fallback.
 
+Both versions take normalized (..., n) limbs. The plain version is
+exact where the JAX kernel is, for a·b < R^occ·m (operands above m
+included); the kernel is exact for every normalized n-limb pair, so the
+two agree bit for bit wherever the JAX kernel is defined.
+
 What bounds the kernel on an H100 is integer multiply throughput, not
 bytes (~7.5 MB in and out per 4096-bit call at B=1024 against ~85 M
 32-bit word products). The kernel repacks rows into 32-bit words and
@@ -37,7 +42,7 @@ import torch
 
 LIMB_BITS = 7
 MAX_LIMBS = 608  # 4256 bits: the 4096-bit Paillier N² width
-_KMAX = 136  # csrc/mulmod.cu
+_KMAX, _LMAX = 136, 160  # csrc/mulmod.cu
 
 launches = 0
 launches_by_width: Dict[int, int] = {}
@@ -65,8 +70,9 @@ def reset_counters() -> None:
 @dataclass(frozen=True)
 class MulmodConsts:
     """Per-modulus operands, built once by ``MXUBarrett``: the Toeplitz
-    constants of the plain (7-bit Barrett) version and the 32-bit word
-    arrays of m and mu = floor(2^(64k) / m) for the kernel."""
+    constants of the plain (7-bit Barrett) version and, for the kernel,
+    the 32-bit word arrays of m (k words) and of mu = floor(2^(64·kw) / m),
+    where kw = ceil(7n/32) words hold a whole row."""
 
     modulus: int
     occ: int
@@ -75,6 +81,7 @@ class MulmodConsts:
     T_m: torch.Tensor
     comps: torch.Tensor
     k: int
+    kw: int
     m_words: torch.Tensor
     mu_words: torch.Tensor
 
@@ -88,12 +95,13 @@ def _words(v: int, count: int, device) -> torch.Tensor:
 
 def make_consts(modulus: int, occ: int, n: int, T_mu, T_m, comps, device) -> MulmodConsts:
     k = -(-modulus.bit_length() // 32)
-    mu = (1 << (64 * k)) // modulus
-    if mu >> (32 * (k + 1)):
+    kw = -(-(LIMB_BITS * n) // 32)
+    mu = (1 << (64 * kw)) // modulus
+    if mu >> (32 * (2 * kw - k + 1)):
         raise ValueError("mulmod kernel: the modulus must exceed 2^(32(k-1))")
     return MulmodConsts(
-        modulus, occ, n, T_mu, T_m, comps, k,
-        _words(modulus, k, device), _words(mu, k + 1, device),
+        modulus, occ, n, T_mu, T_m, comps, k, kw,
+        _words(modulus, k, device), _words(mu, 2 * kw - k + 1, device),
     )
 
 
@@ -162,7 +170,7 @@ def mulmod_cuda(a: torch.Tensor, b: torch.Tensor, c: MulmodConsts) -> torch.Tens
             raise TypeError(f"mulmod kernel takes int32 limbs, got {t.dtype}")
         if t.shape[-1] != n:
             raise ValueError(f"mulmod kernel: width {t.shape[-1]} != {n}")
-    if n > MAX_LIMBS or c.k > _KMAX:
+    if n > MAX_LIMBS or c.kw > _KMAX or 2 * c.kw - c.k + 1 > _LMAX:
         raise ValueError(f"mulmod kernel: width {n} limbs exceeds {MAX_LIMBS}")
     shape = torch.broadcast_shapes(a.shape, b.shape)
     a2 = a.expand(shape).reshape(-1, n).contiguous()

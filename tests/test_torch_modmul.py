@@ -2,10 +2,11 @@
 package's on the same modulus and inputs, and against python ints.
 Exact equality everywhere (integer arithmetic).
 
-Tier-1 compares every method with python ints at both moduli; the slow
-tier compares every method with JAX at 1024 bits and at the 2048-bit
-fixture modulus (each JAX exponentiation compiles its own scan for tens
-of seconds on a CPU).
+Tier-1 compares every method with python ints at both moduli, and with
+JAX at a 256-bit modulus (the ring methods and the fixed-base comb);
+the slow tier compares every
+method with JAX at 1024 bits and at the 2048-bit fixture modulus (each
+JAX exponentiation compiles its own scan for tens of seconds on a CPU).
 """
 import math
 import random
@@ -118,6 +119,23 @@ def _compare_exps(ctx, jctx, av, e_bits):
     ]
     for i, (got, ref) in enumerate(pairs):
         assert np.array_equal(bn.limbs_to_numpy(got), np.asarray(ref)), i
+
+
+def test_methods_match_jax_256():
+    """The ring methods and the fixed-base comb against JAX at the
+    smallest width (the windowed powmods compile scans for tens of
+    seconds and are compared in the slow tier)."""
+    m = random.Random(6).getrandbits(256) | (1 << 255) | 1
+    rnd = random.Random(10)
+    av = [0, 1, m - 1] + [rnd.randrange(m) for _ in range(B - 3)]
+    bv = [m - 1, rnd.randrange(m), m - 1] + [rnd.randrange(m) for _ in range(B - 3)]
+    e_bits = np.random.default_rng(10).integers(0, 2, (B, 40)).astype(np.int32)
+    ctx, jctx = mm.MXUBarrett(m, device="cpu"), jmm.MXUBarrett(m)
+    _compare_ring(ctx, jctx, av, bv)
+    got = ctx.powmod_fixed_base(7, torch.as_tensor(e_bits))
+    ref = jctx.powmod_fixed_base(7, jnp.asarray(e_bits))
+    assert np.array_equal(bn.limbs_to_numpy(got), np.asarray(ref))
+    assert _ints(got, ctx) == [pow(7, e, m) for e in _exps(e_bits)]
 
 
 @pytest.mark.slow

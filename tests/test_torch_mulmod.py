@@ -25,11 +25,18 @@ torch.set_num_threads(1)
 
 def _operands(bits: int, seed: int, B: int = 8):
     """A modulus of ``bits`` bits and B operand pairs with the edges 0, 1
-    and m-1 (the most conditional-subtraction pressure)."""
+    and m-1 (the most conditional-subtraction pressure), plus unreduced
+    operands the JAX kernel still accepts (a·b < R^occ·m): R^occ - 1 and,
+    where it lies below R^occ, 2^(32k), the first bit past m's k words."""
     rnd = random.Random(seed)
     m = rnd.getrandbits(bits) | (1 << (bits - 1)) | 1
     av = [0, 1, m - 1] + [rnd.randrange(m) for _ in range(B - 3)]
     bv = [rnd.randrange(m), m - 1, m - 1] + [rnd.randrange(m) for _ in range(B - 3)]
+    top = 1 << (7 * -(-bits // 7))  # R^occ
+    edges = [top - 1] + [1 << (32 * -(-bits // 32))] * (1 << (32 * -(-bits // 32)) < top)
+    for e in edges:
+        av += [e, m - 1]
+        bv += [m - 1, e]
     return m, av, bv
 
 
@@ -82,8 +89,10 @@ def test_kernel_consts_are_radix_2_32_barrett_words():
     words = lambda t: sum(  # noqa: E731
         (int(w) & 0xFFFFFFFF) << (32 * i) for i, w in enumerate(t.tolist())
     )
-    assert c.k == 64 and words(c.m_words) == m
-    assert words(c.mu_words) == (1 << (64 * c.k)) // m
+    assert (c.k, c.kw) == (64, 70) and words(c.m_words) == m
+    assert words(c.mu_words) == (1 << (64 * c.kw)) // m
+    # the top k+1 words of mu are the narrow Barrett constant
+    assert words(c.mu_words) >> (64 * (c.kw - c.k)) == (1 << (64 * c.k)) // m
 
 
 def _pallas_case(bits: int):
@@ -123,3 +132,11 @@ def test_kernel_matches_plain_on_gpu():
         torch.cuda.synchronize()
         assert torch.equal(got, K.mulmod_plain(a, b, ctx._kc))
         assert bn.batch_from_limbs(got, ctx.prof) == [x * y % m for x, y in zip(av, bv)]
+        # beyond the JAX kernel's domain the kernel stays exact
+        full = (1 << (7 * ctx.prof.n_limbs)) - 1
+        half = 1 << (7 * ctx.prof.n_limbs - 1)
+        wide = _limbs([full, full, half], ctx.prof).cuda()
+        got = K.mulmod_cuda(wide, wide.flip(0), ctx._kc)
+        assert bn.batch_from_limbs(got, ctx.prof) == [
+            full * half % m, full * full % m, full * half % m,
+        ]

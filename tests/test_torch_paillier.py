@@ -1,7 +1,10 @@
 """The port's batched Paillier (ops/paillier_mxu.py) on the 1024-bit
 fixture: encryption against the closed form and the JAX package's
 PaillierMXU.encrypt with the same y and u bits, CRT decryption, and the
-homomorphic add / scalar multiply. Exact equality."""
+homomorphic add / scalar multiply. Exact equality. Tier-1 also holds
+encryption and the homomorphic add against JAX on a small key (Mersenne
+primes 2^127 - 1 and 2^89 - 1); the JAX CRT decryption compiles its
+exponent scans for tens of seconds and is compared in the slow tier."""
 import random
 
 import numpy as np
@@ -11,9 +14,11 @@ import torch
 import jax.numpy as jnp
 
 from mpcium_tpu.cluster import load_test_preparams as jax_preparams
+from mpcium_tpu.core.paillier import PaillierPrivateKey as JaxPaillierKey
 from mpcium_tpu.ops import paillier_mxu as jpm
 from mpcium_tpu_torch.cluster import load_test_preparams
 from mpcium_tpu_torch.core import bignum as bn
+from mpcium_tpu_torch.core.paillier import PaillierPrivateKey
 from mpcium_tpu_torch.ops.paillier_mxu import RAND_BITS, PaillierMXUPrivate
 
 torch.set_num_threads(1)
@@ -78,3 +83,21 @@ def test_encrypt_matches_jax(key):
     assert np.array_equal(bn.limbs_to_numpy(r), np.asarray(jr))
     assert np.array_equal(bn.limbs_to_numpy(pmx.decrypt(c)),
                           np.asarray(jpmx.decrypt(jc)))
+
+
+def test_encrypt_and_add_match_jax_small_key():
+    p, q = (1 << 127) - 1, (1 << 89) - 1
+    pmx = PaillierMXUPrivate(PaillierPrivateKey(p, q), y=987654321, device="cpu")
+    jpmx = jpm.PaillierMXUPrivate(JaxPaillierKey(p, q), y=pmx.y)
+    N = p * q
+    rnd = random.Random(22)
+    ms = [0, 1, N - 1] + [rnd.randrange(N) for _ in range(B - 2)]
+    u = np.random.default_rng(22).integers(0, 2, (len(ms), RAND_BITS)).astype(np.int32)
+    m_l = bn.batch_to_limbs(ms, pmx.prof_n)
+    c, r = pmx.encrypt(torch.as_tensor(m_l), torch.as_tensor(u))
+    jc, jr = jpmx.encrypt(jnp.asarray(m_l), jnp.asarray(u))
+    assert np.array_equal(bn.limbs_to_numpy(c), np.asarray(jc))
+    assert np.array_equal(bn.limbs_to_numpy(r), np.asarray(jr))
+    assert np.array_equal(bn.limbs_to_numpy(pmx.add(c, c.flip(0))),
+                          np.asarray(jpmx.add(jc, jc[::-1])))
+    assert bn.batch_from_limbs(pmx.decrypt(c), pmx.prof_n) == ms
