@@ -19,15 +19,29 @@ Phases, each printing one JSON line:
    replayed between one event pair, so no host work sits between the
    launches; the wrapper's time per call (host work included) and the
    plain version's are printed beside it.
-3. slice — dealer keygen for B wallets (2-of-3), then two GG18
+3. powmod_vs_plain — the whole-exponentiation entry in each mode
+   (row: per-row exponent; shared: one exponent for the batch; comb:
+   fixed-base comb table) at n=320 (2048-bit N) and n=608 (4096-bit
+   N²), B rows, at the exponent widths of the signing path (256, 760
+   and 1784 bits per row, the 1024-bit decryption exponent p-1 shared,
+   RAND_BITS and 1784 bits for the comb). Edge rows: bases 0, 1, m-1
+   and exponents 0, 1, all ones. The kernel must equal the plain
+   version bit for bit, and sampled rows (the edges among them) python
+   ``pow``; unreduced bases R^occ-1 and all-ones rows, beyond the plain
+   version's domain, must equal python ``pow``. Kernel ms per launch:
+   one CUDA event pair around each of seven launches of the C entry,
+   median; the plain version's ms from one event pair around its call;
+   the steps (modular multiplies) each row needs, from the digits.
+4. slice — dealer keygen for B wallets (2-of-3), then two GG18
    Paillier-MtA batched signatures over B digests each with a seeded
    stream: the first builds the per-key fixed-base tables and is
    reported as first_sign_s; the second is the measured one (sigs/s).
    Every (r, s) of the measured sign is verified on the host with the
    port's python-int ECDSA verifier; the kernel launch counters are
-   zeroed just before it and must show launches at both widths, and the
-   plain version none.
-4. golden — the B=2 case of the JAX engine's committed golden signed on
+   zeroed just before it and must show launches of both entries at both
+   widths (powmod: row and comb at both, shared at n=320), and the
+   plain versions none.
+5. golden — the B=2 case of the JAX engine's committed golden signed on
    the card: (r, s, recovery, ok) must match byte for byte.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
@@ -50,6 +64,14 @@ ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "mpcium_tpu_torch" / "data" / "goldens" / "gg18_paillier_b2_1024.json"
 COHORTS = 2
 REPS, GROUPS = 100, 20  # calls per CUDA event pair; pairs per median
+POWMOD_TIMINGS = 7  # event pairs (one launch each) per powmod median
+# (mode, n) of every powmod the signing path launches, and the exponent
+# width (one the path gives it) whose measurement stands for it in the
+# kernels line. A warm sign's exponents: row 256 bits at n=320; row 128,
+# 256, 760 and 1032 at n=608; shared 1024 (p-1, q-1) at n=320; comb 256
+# to 2824 at n=320 and 256 (RAND_BITS) at n=608.
+POWMOD_PATH = {("row", 320): 256, ("row", 608): 760, ("shared", 320): 1024,
+               ("comb", 320): 1784, ("comb", 608): 256}
 
 # H100 SXM peaks for the bound: HBM3 at 3.35 TB/s (NVIDIA data sheet), and
 # 32-bit integer multiply-add at 64 per clock per SM (CUDA C++ Programming
@@ -79,6 +101,17 @@ def mulmod_bound_ms(rows: int, n: int, modulus: int):
     k = -(-modulus.bit_length() // 32)
     t_bytes = 3 * rows * n * 4 / HBM_BYTES_PER_S
     t_ops = rows * 2 * k * k * 2 / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def powmod_bound_ms(steps: int, moved_bytes: int, modulus: int):
+    """Least time for one powmod launch: the bytes it must move (rows and
+    digits in, results out, each comb table entry the digits select read
+    once) over HBM bandwidth, and the Barrett word products of all its
+    steps (2k² per step, as in mulmod_bound_ms) over the int32 rate."""
+    k = -(-modulus.bit_length() // 32)
+    t_bytes = moved_bytes / HBM_BYTES_PER_S
+    t_ops = steps * 2 * k * k * 2 / INT32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -205,6 +238,139 @@ def kernel_vs_plain(B: int, seed: int, pre, K, mm, bn):
     return results
 
 
+def powmod_launch_ms(K, L, c) -> float:
+    """Device ms per launch of the powmod kernel's C entry on packed
+    operands (``launch_powmod``: no checks, no counting): one CUDA event
+    pair around each launch, median of POWMOD_TIMINGS after one warm-up
+    launch."""
+    import torch
+
+    out = torch.empty((L.rows, c.n), dtype=torch.int32, device="cuda")
+    times = []
+    for i in range(POWMOD_TIMINGS + 1):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        if K.launch_powmod(L, c, out) != 0:
+            raise RuntimeError("powmod kernel launch failed")
+        e.record()
+        e.synchronize()
+        if i:
+            times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def powmod_vs_plain(B: int, seed: int, pre, K, mm, bn):
+    import numpy as np
+    import torch
+
+    from mpcium_tpu_torch.ops.paillier_mxu import RAND_BITS
+
+    p0 = pre["node0"]
+    N, p = p0.paillier.N, p0.paillier.p
+    rnd = random.Random(seed + 7)
+    nrng = np.random.default_rng(seed + 7)
+    results = {}
+    for label, m in (("N", N), ("N2", N * N)):
+        ctx = mm.MXUBarrett(m, device="cuda")
+        c, n = ctx._kc, ctx.prof.n_limbs
+        cases = [("row", 256), ("row", 760), ("row", 1784),
+                 ("shared", (p - 1).bit_length()), ("comb", RAND_BITS), ("comb", 1784)]
+        for mode, ebits in cases:
+            xs = [0, 1, m - 1] + [rnd.randrange(m) for _ in range(B - 3)]
+            eb = nrng.integers(0, 2, (B, ebits)).astype(np.int32)
+            eb[3], eb[4], eb[5] = 0, 0, 1
+            eb[4, 0] = 1  # rows 3, 4, 5: e = 0, 1, all ones
+            es = [int("".join(map(str, r[::-1])), 2) for r in eb]
+            x = torch.as_tensor(bn.batch_to_limbs(xs, ctx.prof), device="cuda")
+            ebt = torch.as_tensor(eb, device="cuda")
+            table = None
+            if mode == "row":
+                args = (x, mm._window_digits(ebt, 4))
+                want = lambda i: pow(xs[i], es[i], m)  # noqa: E731
+            elif mode == "shared":
+                e = p - 1
+                nw = -(-e.bit_length() // 4)
+                ds = torch.tensor([(e >> (4 * i)) & 15 for i in range(nw)],
+                                  dtype=torch.int32, device="cuda")
+                args = (x, ds)
+                want = lambda i: pow(xs[i], p - 1, m)  # noqa: E731
+            else:
+                base = rnd.randrange(2, m)
+                ctx.powmod_fixed_base(base, ebt[:1])  # builds the comb table
+                table = ctx._fb_tables[(base, -(-ebits // mm.COMB_W), mm.COMB_W)]
+                args = (None, mm._window_digits(ebt, mm.COMB_W))
+                want = lambda i: pow(base, es[i], m)  # noqa: E731
+            got = K.powmod_cuda(*args, c, mode, table)
+            s_, e_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s_.record()
+            ref = K.powmod_plain(*args, c, mode, table)
+            e_.record()
+            e_.synchronize()
+            plain_ms = s_.elapsed_time(e_)
+            if not torch.equal(got, ref):
+                bad = int((got != ref).any(-1).sum())
+                raise AssertionError(f"powmod {mode} {label}: kernel != plain in {bad} rows")
+            sample = list(range(6)) + rnd.sample(range(6, B), 13)
+            host = bn.batch_from_limbs(got[sample], ctx.prof)
+            for i, v in zip(sample, host):
+                if v != want(i):
+                    raise AssertionError(f"powmod {mode} {label}: row {i} != python pow")
+            err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+            extra = []
+            if mode == "shared":
+                # exponent edges of a shared exponent: one launch each
+                for e in (0, 1, (1 << ebits) - 1):
+                    nw = max(1, -(-e.bit_length() // 4))
+                    ds = torch.tensor([(e >> (4 * i)) & 15 for i in range(nw)],
+                                      dtype=torch.int32, device="cuda")
+                    g = K.powmod_cuda(x[:8], ds, c, mode)
+                    if not torch.equal(g, K.powmod_plain(x[:8], ds, c, mode)) or (
+                        bn.batch_from_limbs(g, ctx.prof) != [pow(v, e, m) for v in xs[:8]]
+                    ):
+                        raise AssertionError(f"powmod shared {label}: exponent {e:#x}")
+                    extra.append(e.bit_length())
+            if mode != "comb":
+                # unreduced bases: python ints only
+                wide = [(1 << (7 * ctx.occ)) - 1, (1 << (7 * n)) - 1] * 2
+                xw = torch.as_tensor(bn.batch_to_limbs(wide, ctx.prof), device="cuda")
+                if mode == "row":
+                    ew = [1, es[6], (1 << ebits) - 1, es[7]]
+                    g = K.powmod_cuda(xw, args[1][[4, 6, 5, 7]], c, mode)
+                else:
+                    ew = [p - 1] * 4
+                    g = K.powmod_cuda(xw, args[1], c, mode)
+                if bn.batch_from_limbs(g, ctx.prof) != [pow(v, e, m) for v, e in zip(wide, ew)]:
+                    raise AssertionError(f"powmod {mode} {label}: unreduced base != python pow")
+            L = K.pack_powmod(*args, c, mode, table)
+            steps = K.powmod_steps(L)
+            moved = 4 * (L.digits.numel() + 2 * L.rows * n) if mode != "comb" else 4 * (
+                L.digits.numel() + L.rows * n)
+            if mode == "comb":
+                d = L.digits.cpu().numpy()
+                moved += 4 * c.k * sum(len(np.unique(col[col != 0])) for col in d.T)
+            k_ms = powmod_launch_ms(K, L, c)
+            host = []
+            for _ in range(POWMOD_TIMINGS):
+                t0 = time.perf_counter()
+                K.powmod_cuda(*args, c, mode, table)
+                host.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+            bound, by = powmod_bound_ms(int(steps.sum()), moved, m)
+            rec = {
+                "phase": "powmod_vs_plain", "mode": mode, "modulus": label,
+                "bits": m.bit_length(), "n_limbs": n, "rows": B, "exp_bits": ebits,
+                "shared_exp_edges_bits": extra, "equal": True, "max_abs_err": err,
+                "kernel_ms": k_ms, "steps_max": int(steps.max()),
+                "steps_total": int(steps.sum()),
+                "kernel_ms_per_step": k_ms / max(int(steps.max()), 1),
+                "wrapper_host_ms_per_call": statistics.median(host),
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            }
+            emit(rec)
+            results[(mode, n, ebits)] = rec
+    return results
+
+
 def run_slice(B: int, seed: int, pre, K):
     import numpy as np
     import torch
@@ -242,6 +408,7 @@ def run_slice(B: int, seed: int, pre, K):
     sign_s = time.perf_counter() - t0
     launches = K.launches
     by_width = dict(K.launches_by_width)
+    by_mode = dict(K.powmod_launches_by_mode_width)
     plain_calls = K.plain_calls
     t0 = time.perf_counter()
     verified = 0
@@ -258,19 +425,24 @@ def run_slice(B: int, seed: int, pre, K):
         "sign_s": sign_s,
         "sigs_per_s": B / sign_s, "phases_s": phases, "host_verify_s": verify_s,
         "ok_all": bool(out["ok"].all()), "verified": verified,
-        "kernel_launches": launches,
-        "kernel_launches_by_width": {str(k): v for k, v in sorted(by_width.items())},
+        "kernel_launches": launches + sum(by_mode.values()),
+        "mulmod_launches_by_width": {str(k): v for k, v in sorted(by_width.items())},
+        "powmod_launches_by_mode_width": {
+            f"{m}/{n}": v for (m, n), v in sorted(by_mode.items())},
         "plain_calls": plain_calls,
     })
     if not out["ok"].all() or verified != B:
         raise AssertionError(f"signatures: ok={int(out['ok'].sum())}/{B} "
                              f"verified={verified}/{B}")
     if plain_calls:
-        raise AssertionError(f"plain mulmod ran {plain_calls}x on the card")
+        raise AssertionError(f"a plain version ran {plain_calls}x on the card")
     for n in (320, 608):
         if by_width.get(n, 0) == 0:
-            raise AssertionError(f"no kernel launch at width {n} during the sign")
-    return by_width
+            raise AssertionError(f"no mulmod launch at width {n} during the sign")
+    for key in POWMOD_PATH:
+        if by_mode.get(key, 0) == 0:
+            raise AssertionError(f"no powmod launch of {key} during the sign")
+    return by_width, by_mode
 
 
 def check_golden(device: str = "cuda") -> None:
@@ -350,7 +522,16 @@ def main() -> int:
 
     pre = load_test_preparams(2048)
     widths = kernel_vs_plain(1024, args.seed, pre, K, mm, bn)
-    by_width = run_slice(args.batch, args.seed, pre, K)
+    pm = powmod_vs_plain(1024, args.seed, pre, K, mm, bn)
+    by_width, by_mode = run_slice(args.batch, args.seed, pre, K)
+    emit({
+        "phase": "wrapper_host", "note": "launches in the warm sign x host ms "
+        "per wrapper call at B=1024 (kernel_vs_plain, powmod_vs_plain)",
+        "mulmod_s": sum(by_width.get(n, 0) * r["wrapper_host_ms_per_call"]
+                        for n, r in widths.items()) / 1e3,
+        "powmod_s": sum(by_mode[key] * pm[key + (eb,)]["wrapper_host_ms_per_call"]
+                        for key, eb in POWMOD_PATH.items()) / 1e3,
+    })
     check_golden()
 
     kernels = []
@@ -361,6 +542,21 @@ def main() -> int:
             "source": "mpcium_tpu_torch/ops/csrc/mulmod.cu",
             "replaces": "mpcium_tpu/ops/pallas_mulmod.py:91",
             "launches": by_width.get(n, 0),
+            "max_abs_err": rec["max_abs_err"],
+            "ms": rec["kernel_ms"],
+            "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"],
+            "library_ms": None,
+        })
+    for (mode, n), eb in POWMOD_PATH.items():
+        rec = pm[(mode, n, eb)]
+        kernels.append({
+            "name": f"powmod_{mode}_n{n}",
+            "route": "cuda",
+            "source": "mpcium_tpu_torch/ops/csrc/mulmod.cu",
+            "replaces": "mpcium_tpu/ops/pallas_mulmod.py:91",
+            "launches": by_mode[(mode, n)],
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["kernel_ms"],
             "plain_ms": rec["plain_ms"],

@@ -10,8 +10,9 @@ normalized unless stated otherwise — the JAX package's layout.
   :func:`core.bignum.carry`.
 * Conditional subtraction adds the radix complement R^(occ+1) - m and
   reads the top limb.
-* Every modular multiply — ``mulmod`` and each step of the powmod loops —
-  goes through :mod:`ops.mulmod`: the CUDA kernel for CUDA tensors, its
+* Every modular multiply goes through :mod:`ops.mulmod`: ``mulmod`` as
+  one product, each powmod as one whole exponentiation (the window
+  loops run inside the kernel); the CUDA kernel for CUDA tensors, its
   plain version for CPU tensors.
 """
 from __future__ import annotations
@@ -266,48 +267,19 @@ class MXUBarrett:
 
     # -- exponentiation -----------------------------------------------------
 
-    def _table16(self, x: torch.Tensor):
-        rows = [self.one_like(x), x]
-        for _ in range(14):
-            rows.append(self._mm(rows[-1], x))
-        return rows
-
     def powmod_const_exp(self, x: torch.Tensor, exponent: int) -> torch.Tensor:
         """x^e mod m for a batch-shared python-int exponent, 4-bit windows."""
         if exponent == 0:
             return self.one_like(x)
-        rows = self._table16(x)
         nw = -(-exponent.bit_length() // 4)
-        acc = None
-        for i in range(nw - 1, -1, -1):
-            d = (exponent >> (4 * i)) & 15
-            if acc is None:
-                acc = rows[d]
-                continue
-            for _ in range(4):
-                acc = self._mm(acc, acc)
-            if d:
-                acc = self._mm(acc, rows[d])
-        return acc
+        digits = torch.tensor(
+            [(exponent >> (4 * i)) & 15 for i in range(nw)], dtype=I32, device=x.device
+        )
+        return K.powmod(x, digits, self._kc, "shared")
 
     def powmod(self, x: torch.Tensor, ebits: torch.Tensor) -> torch.Tensor:
         """x^e with per-element exponent bits (LSB-first), 4-bit windows."""
-        n = self.prof.n_limbs
-        shape = torch.broadcast_shapes(x.shape[:-1], ebits.shape[:-1])
-        x = x.expand(shape + (n,))
-        digits = _window_digits(ebits, 4).expand(shape + (-1,))
-        tbl = torch.stack(self._table16(x), dim=-2)  # (..., 16, n)
-        acc = None
-        for i in range(digits.shape[-1] - 1, -1, -1):
-            idx = digits[..., i, None, None].expand(shape + (1, n))
-            sel = tbl.gather(-2, idx).squeeze(-2)
-            if acc is None:
-                acc = sel
-                continue
-            for _ in range(4):
-                acc = self._mm(acc, acc)
-            acc = self._mm(acc, sel)
-        return acc
+        return K.powmod(x, _window_digits(ebits, 4), self._kc, "row")
 
     def powmod_fixed_base(self, base: int, ebits: torch.Tensor) -> torch.Tensor:
         """base^e mod m, python-int base, per-element exponent bits.
@@ -329,17 +301,9 @@ class MXUBarrett:
                     vals.append(acc)
                     acc = acc * b_i % m
                 b_i = pow(b_i, rows, m)
-            tbl = torch.as_tensor(
-                ints_to_limbs(vals, self.prof).reshape(nw, rows, self.prof.n_limbs),
-                device=self.device,
-            )
+            tbl = K.make_comb_table(vals, nw, self._kc, self.prof, self.device)
             self._fb_tables[key] = tbl
-        digits = _window_digits(ebits, wbits)
-        acc = None
-        for i in range(nw):
-            sel = tbl[i][digits[..., i]]
-            acc = sel if acc is None else self._mm(acc, sel)
-        return acc
+        return K.powmod(None, _window_digits(ebits, wbits), self._kc, "comb", tbl)
 
     def invmod_prime(self, x: torch.Tensor) -> torch.Tensor:
         return self.powmod_const_exp(x, self.modulus - 2)

@@ -1,29 +1,43 @@
-"""Batched a·b mod m: the hand-written CUDA kernel and its plain version.
+"""Batched a·b mod m and whole exponentiations: the hand-written CUDA
+kernels and their plain versions.
 
 Replaces the TPU kernel ``mpcium_tpu/ops/pallas_mulmod.py:_mulmod_kernel``
-(the only ``pallas_call`` in the JAX package). Every ``MXUBarrett``
-mulmod and every multiply step of its powmod loops comes here, the
-counterpart of ``mpcium_tpu/ops/modmul._mm``: a CUDA tensor launches the
-kernel in ``csrc/mulmod.cu`` (or raises), a CPU tensor takes
-:func:`mulmod_plain`. There is no switch and no fallback.
+(the only ``pallas_call`` in the JAX package) and the exponent loops
+around it. Two entries, both in ``csrc/mulmod.cu``:
 
-Both versions take normalized (..., n) limbs. The plain version is
+* :func:`mulmod` — one product per row, the counterpart of
+  ``mpcium_tpu/ops/modmul._mm``. ``MXUBarrett.mulmod`` and
+  ``prod_over_batch`` come here.
+* :func:`powmod` — one whole exponentiation per row in one launch, the
+  counterpart of ``_k_powmod`` (mode ``"row"``: per-row exponent),
+  ``_k_powmod_digits`` (``"shared"``: one exponent for the batch) and
+  ``_k_powmod_fb`` (``"comb"``: fixed-base comb table). The row stays in
+  32-bit words in shared memory for the whole loop.
+
+A CUDA tensor launches the kernel (or raises), a CPU tensor takes the
+plain version (:func:`mulmod_plain`, :func:`powmod_plain`). There is no
+switch and no fallback.
+
+Both versions take normalized (..., n) limbs. The plain versions are
 exact where the JAX kernel is, for a·b < R^occ·m (operands above m
-included); the kernel is exact for every normalized n-limb pair, so the
-two agree bit for bit wherever the JAX kernel is defined.
+included); the kernels are exact for every normalized n-limb operand,
+so the two agree bit for bit wherever the JAX kernel is defined, and
+every result is the canonical residue whatever the window schedule.
 
-What bounds the kernel on an H100 is integer multiply throughput, not
-bytes (~7.5 MB in and out per 4096-bit call at B=1024 against ~85 M
-32-bit word products). The kernel repacks rows into 32-bit words and
-reduces in radix 2^32 (see the source note in ``csrc/mulmod.cu``);
-warpgroup MMA, TMA and in-kernel exponent loops are later work.
+What bounds the kernels on an H100 is integer multiply throughput, not
+bytes (~7.5 MB in and out per 4096-bit product at B=1024 against ~85 M
+32-bit word products). They reduce in radix 2^32 (see the source note in
+``csrc/mulmod.cu``); warpgroup MMA, TMA and a parallel carry are later
+work.
 
 The library is compiled with ``nvcc`` into ``build/mpcium_tpu_torch/``
 at the first CUDA call and bound with ctypes (plain C interface, no
 PyTorch headers).
 
-Counters: ``launches`` counts kernel launches, ``launches_by_width`` the
-same per limb width n, ``plain_calls`` calls of :func:`mulmod_plain`.
+Counters: ``launches`` counts launches of the single-product kernel,
+``launches_by_width`` the same per limb width n;
+``powmod_launches_by_mode_width`` counts powmod launches per
+(mode, n); ``plain_calls`` counts calls of either plain version.
 """
 from __future__ import annotations
 
@@ -35,7 +49,7 @@ import subprocess
 import threading
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,8 +58,12 @@ LIMB_BITS = 7
 MAX_LIMBS = 608  # 4256 bits: the 4096-bit Paillier N² width
 _KMAX, _LMAX = 136, 160  # csrc/mulmod.cu
 
+POWMOD_MODES = ("row", "shared", "comb")  # csrc/mulmod.cu MODE_ROW, ...
+COMB_ROWS = 256  # entries per comb window: 8-bit digits
+
 launches = 0
 launches_by_width: Dict[int, int] = {}
+powmod_launches_by_mode_width: Dict[Tuple[str, int], int] = {}
 plain_calls = 0
 
 SRC = Path(__file__).resolve().parent / "csrc" / "mulmod.cu"
@@ -65,6 +83,7 @@ def reset_counters() -> None:
     launches = 0
     plain_calls = 0
     launches_by_width.clear()
+    powmod_launches_by_mode_width.clear()
 
 
 @dataclass(frozen=True)
@@ -86,11 +105,15 @@ class MulmodConsts:
     mu_words: torch.Tensor
 
 
+def ints_to_words(vals, count: int) -> np.ndarray:
+    """Non-negative python ints below 2^(32·count) -> (len, count) int32
+    arrays of their little-endian 32-bit words (bit patterns of uint32)."""
+    buf = b"".join(v.to_bytes(4 * count, "little") for v in vals)
+    return np.frombuffer(buf, dtype="<i4").reshape(len(vals), count).copy()
+
+
 def _words(v: int, count: int, device) -> torch.Tensor:
-    arr = np.array(
-        [(v >> (32 * i)) & 0xFFFFFFFF for i in range(count)], dtype=np.uint32
-    )
-    return torch.as_tensor(arr.view(np.int32), device=device)
+    return torch.as_tensor(ints_to_words([v], count)[0], device=device)
 
 
 def make_consts(modulus: int, occ: int, n: int, T_mu, T_m, comps, device) -> MulmodConsts:
@@ -142,6 +165,9 @@ def build() -> ctypes.CDLL:
         fn = lib.mpcium_mulmod
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fn = lib.mpcium_powmod
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
         _lib = lib
         return lib
 
@@ -159,6 +185,11 @@ def mulmod(a: torch.Tensor, b: torch.Tensor, c: MulmodConsts) -> torch.Tensor:
     return mulmod_cuda(a, b, c)
 
 
+def _check_width(c: MulmodConsts, entry: str) -> None:
+    if c.n > MAX_LIMBS or c.kw > _KMAX or 2 * c.kw - c.k + 1 > _LMAX:
+        raise ValueError(f"{entry} kernel: width {c.n} limbs exceeds {MAX_LIMBS}")
+
+
 def mulmod_cuda(a: torch.Tensor, b: torch.Tensor, c: MulmodConsts) -> torch.Tensor:
     global launches
     n = c.n
@@ -170,8 +201,7 @@ def mulmod_cuda(a: torch.Tensor, b: torch.Tensor, c: MulmodConsts) -> torch.Tens
             raise TypeError(f"mulmod kernel takes int32 limbs, got {t.dtype}")
         if t.shape[-1] != n:
             raise ValueError(f"mulmod kernel: width {t.shape[-1]} != {n}")
-    if n > MAX_LIMBS or c.kw > _KMAX or 2 * c.kw - c.k + 1 > _LMAX:
-        raise ValueError(f"mulmod kernel: width {n} limbs exceeds {MAX_LIMBS}")
+    _check_width(c, "mulmod")
     shape = torch.broadcast_shapes(a.shape, b.shape)
     a2 = a.expand(shape).reshape(-1, n).contiguous()
     b2 = b.expand(shape).reshape(-1, n).contiguous()
@@ -195,7 +225,218 @@ def mulmod_plain(a: torch.Tensor, b: torch.Tensor, c: MulmodConsts) -> torch.Ten
     """The plain PyTorch version: float64 band product, lookahead carries
     and the Barrett reduction of ``modmul._reduce_impl`` (7-bit radix)."""
     global plain_calls
+    plain_calls += 1
+    return _mulmod_plain(a, b, c)
+
+
+def _mulmod_plain(a: torch.Tensor, b: torch.Tensor, c: MulmodConsts) -> torch.Tensor:
     from .modmul import _reduce_impl, mul_pair
 
-    plain_calls += 1
     return _reduce_impl(mul_pair(a, b), c.T_mu, c.T_m, c.comps, c.occ, c.n)
+
+
+# ---------------------------------------------------------------------------
+# whole exponentiations: the wrapper and its plain version
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class CombTable:
+    """Fixed-base comb table, entry [i, d] = base^(2^(8i)·d) mod m for
+    d < 256, in both forms: ``limbs`` (nw, 256, n) 7-bit limbs for the
+    plain version, ``words`` (nw, 256, k) canonical 32-bit words (int32
+    bit patterns) for the kernel."""
+
+    limbs: torch.Tensor
+    words: torch.Tensor
+
+
+def make_comb_table(vals, nw: int, c: MulmodConsts, prof, device) -> CombTable:
+    """The comb table from its nw·256 canonical python-int entries."""
+    from .modmul import ints_to_limbs
+
+    return CombTable(
+        torch.as_tensor(
+            ints_to_limbs(vals, prof).reshape(nw, COMB_ROWS, c.n), device=device
+        ),
+        torch.as_tensor(
+            ints_to_words(vals, c.k).reshape(nw, COMB_ROWS, c.k), device=device
+        ),
+    )
+
+
+@dataclass(frozen=True)
+class PowmodLaunch:
+    """What the powmod kernel receives for one call."""
+
+    mode: str
+    shape: Tuple[int, ...]  # leading shape of the result
+    x: Optional[torch.Tensor]  # (rows, n) int32 limbs; None for "comb"
+    digits: torch.Tensor  # int32: (rows, nwin), or (nwin,) for "shared"
+    stride: int  # the digits' row stride: nwin, or 0 for "shared"
+    table: Optional[torch.Tensor]  # comb words (nw, 256, k); else None
+
+    @property
+    def rows(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64))
+
+    @property
+    def nwin(self) -> int:
+        return self.digits.shape[-1]
+
+
+def pack_powmod(x, digits: torch.Tensor, c: MulmodConsts, mode: str,
+                table: Optional[CombTable] = None) -> PowmodLaunch:
+    """Flatten and broadcast the operands of :func:`powmod` into the
+    contiguous int32 rows the kernel reads (any device)."""
+    n = c.n
+    if mode not in POWMOD_MODES:
+        raise ValueError(f"powmod: mode {mode!r} not in {POWMOD_MODES}")
+    if (mode == "comb") != (x is None) or (mode == "comb") != (table is not None):
+        raise ValueError("powmod: mode 'comb' takes a table and no base, the others a base")
+    if x is not None:
+        if x.dtype != torch.int32:
+            raise TypeError(f"powmod takes int32 limbs, got {x.dtype}")
+        if x.shape[-1] != n:
+            raise ValueError(f"powmod: width {x.shape[-1]} != {n}")
+    nwin = digits.shape[-1]
+    tw = None
+    if mode == "comb":
+        tw = table.words
+        if tuple(tw.shape[1:]) != (COMB_ROWS, c.k) or nwin > tw.shape[0]:
+            raise ValueError(f"powmod: {nwin} comb windows vs table {tuple(tw.shape)}")
+        shape = tuple(digits.shape[:-1])
+        xs, d = None, digits.reshape(-1, nwin)
+    elif mode == "shared":
+        if digits.dim() != 1:
+            raise ValueError("powmod: mode 'shared' takes one (nwin,) digit array")
+        shape = tuple(x.shape[:-1])
+        xs, d = x.reshape(-1, n), digits
+    else:
+        shape = tuple(torch.broadcast_shapes(x.shape[:-1], digits.shape[:-1]))
+        xs = x.expand(shape + (n,)).reshape(-1, n)
+        d = digits.expand(shape + (nwin,)).reshape(-1, nwin)
+    return PowmodLaunch(
+        mode, shape, None if xs is None else xs.contiguous(),
+        d.to(torch.int32).contiguous(), 0 if mode == "shared" else nwin, tw,
+    )
+
+
+def powmod_steps(L: PowmodLaunch) -> np.ndarray:
+    """Modular multiplies (squarings included) the kernel runs per row,
+    from the digits: a 15-step window table (x mod m, then x^2..x^15) and
+    4 squarings plus one multiply per non-zero digit for every window
+    below the top non-zero one; the comb one multiply per non-zero digit
+    past the first. e = 0 takes no step."""
+    d = L.digits.cpu().numpy().reshape(-1, L.nwin)
+    nz = d != 0
+    if L.mode == "comb":
+        steps = np.maximum(nz.sum(-1) - 1, 0)
+    else:
+        top = np.where(nz.any(-1), L.nwin - 1 - np.argmax(nz[:, ::-1], -1), -1)
+        below = np.cumsum(nz, -1)[np.arange(len(d)), np.maximum(top, 0)] - nz.any(-1)
+        steps = np.where(top >= 0, 15 + 4 * top + below, 0)
+    return np.broadcast_to(steps, (L.rows,)) if L.mode == "shared" else steps
+
+
+def powmod(x, digits: torch.Tensor, c: MulmodConsts, mode: str,
+           table: Optional[CombTable] = None) -> torch.Tensor:
+    """x^e mod m per row from window digits (least significant first):
+    ``"row"``: x (..., n) and 4-bit digits (..., nwin), broadcast;
+    ``"shared"``: x (..., n) and one (nwin,) 4-bit digit array;
+    ``"comb"``: x None, 8-bit digits (..., nwin) into ``table``.
+    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    lead = digits if x is None else x
+    if lead.device.type == "cpu" and digits.device.type == "cpu":
+        return powmod_plain(x, digits, c, mode, table)
+    return powmod_cuda(x, digits, c, mode, table)
+
+
+def powmod_cuda(x, digits: torch.Tensor, c: MulmodConsts, mode: str,
+                table: Optional[CombTable] = None) -> torch.Tensor:
+    n = c.n
+    dev = c.m_words.device
+    L = pack_powmod(x, digits, c, mode, table)
+    for t in (L.x, L.digits, L.table):
+        if t is not None and (t.device != dev or dev.type != "cuda"):
+            raise ValueError(f"powmod kernel: tensor on {t.device}, consts on {dev}")
+    _check_width(c, "powmod")
+    out = torch.empty((L.rows, n), dtype=torch.int32, device=dev)
+    if L.rows == 0:
+        return out.reshape(L.shape + (n,))
+    rc = launch_powmod(L, c, out)
+    if rc != 0:
+        raise RuntimeError(f"powmod kernel launch failed: CUDA error {rc}")
+    key = (mode, n)
+    powmod_launches_by_mode_width[key] = powmod_launches_by_mode_width.get(key, 0) + 1
+    return out.reshape(L.shape + (n,))
+
+
+def launch_powmod(L: PowmodLaunch, c: MulmodConsts, out: torch.Tensor) -> int:
+    """One launch of the powmod kernel's C entry on packed operands into
+    ``out`` (rows, n), on the current stream; counts nothing, checks
+    nothing, returns the CUDA error code."""
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    return build().mpcium_powmod(
+        ptr(L.x), L.digits.data_ptr(), ptr(L.table), out.data_ptr(),
+        c.m_words.data_ptr(), c.mu_words.data_ptr(), L.rows, c.n, c.k, L.nwin,
+        L.stride, POWMOD_MODES.index(L.mode),
+        torch.cuda.current_stream(out.device).cuda_stream,
+    )
+
+
+def _table16(x: torch.Tensor, c: MulmodConsts):
+    from .modmul import _one_like
+
+    rows = [_one_like(x, c.n), x]
+    for _ in range(14):
+        rows.append(_mulmod_plain(rows[-1], x, c))
+    return rows
+
+
+def powmod_plain(x, digits: torch.Tensor, c: MulmodConsts, mode: str,
+                 table: Optional[CombTable] = None) -> torch.Tensor:
+    """The plain PyTorch version: the 4-bit window loops (8-bit comb) over
+    :func:`mulmod_plain`'s arithmetic, one eager product per step."""
+    global plain_calls
+    from .modmul import _one_like
+
+    if mode not in POWMOD_MODES:
+        raise ValueError(f"powmod: mode {mode!r} not in {POWMOD_MODES}")
+    plain_calls += 1
+    n = c.n
+    if mode == "comb":
+        acc = None
+        for i in range(digits.shape[-1]):
+            sel = table.limbs[i][digits[..., i].long()]
+            acc = sel if acc is None else _mulmod_plain(acc, sel, c)
+        return acc
+    if mode == "shared":
+        ds = digits.tolist()
+        while ds and not ds[-1]:
+            ds.pop()
+        if not ds:
+            return _one_like(x, n)
+        rows = _table16(x, c)
+        acc = rows[ds[-1]]
+        for d in reversed(ds[:-1]):
+            for _ in range(4):
+                acc = _mulmod_plain(acc, acc, c)
+            if d:
+                acc = _mulmod_plain(acc, rows[d], c)
+        return acc
+    shape = torch.broadcast_shapes(x.shape[:-1], digits.shape[:-1])
+    x = x.expand(shape + (n,))
+    digits = digits.long().expand(shape + (-1,))
+    tbl = torch.stack(_table16(x, c), dim=-2)  # (..., 16, n)
+    acc = None
+    for i in range(digits.shape[-1] - 1, -1, -1):
+        idx = digits[..., i, None, None].expand(shape + (1, n))
+        sel = tbl.gather(-2, idx).squeeze(-2)
+        if acc is None:
+            acc = sel
+            continue
+        for _ in range(4):
+            acc = _mulmod_plain(acc, acc, c)
+        acc = _mulmod_plain(acc, sel, c)
+    return acc
