@@ -44,8 +44,28 @@ Phases, each printing one JSON line:
 5. golden — the B=2 case of the JAX engine's committed golden signed on
    the card: (r, s, recovery, ok) must match byte for byte.
 
-Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
-line ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
+The OT-MtA backend (``mta_impl="ot"``: IKNP extension, KOS / Gilboa /
+consistency checks; it launches no K0):
+
+6. ot_leg_golden — a synthetic OT leg on the card (fixed base-OT keys
+   and tag, B=4): the three-round wire messages, the run_multi
+   transcript at chunks 1 and 2, both shares and the check verdicts
+   must equal the JAX leg's committed golden byte for byte.
+7. ot_tamper — the eight wire fields an active cheater controls (U, the
+   KOS tags, y0, y1, D, B_pt, Beta_pt), each corrupted on its own lane
+   at B=4: check_blame() must name the owner and the check of the JAX
+   table on that lane and no one on the others.
+8. ot_slice — the slice's B wallets signed twice with the OT backend at
+   cohorts=2 (setup_s includes the base OTs; first_sign_s, then the
+   measured warm sign with its phases and the run_multi timings).
+   Every (r, s) verified on the host, no blame on any leg, and the K0
+   counters, zeroed just before the warm sign, read 0.
+9. ot_golden — the B=2 case of the JAX engine's committed OT golden
+   signed on the card: (r, s, recovery, ok) byte for byte.
+
+Then the script's wall time, a ``{"kernels": [...]}`` line, the
+nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
+Any failure exits non-zero.
 
     python3 chip_smoke.py [--batch 1024] [--seed 1]
 """
@@ -61,7 +81,10 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-GOLDEN = ROOT / "mpcium_tpu_torch" / "data" / "goldens" / "gg18_paillier_b2_1024.json"
+GOLDENS = ROOT / "mpcium_tpu_torch" / "data" / "goldens"
+GOLDEN = GOLDENS / "gg18_paillier_b2_1024.json"
+OT_GOLDEN = GOLDENS / "gg18_ot_b2.json"
+OT_LEG_GOLDEN = GOLDENS / "ot_leg_b4.json"
 COHORTS = 2
 REPS, GROUPS = 100, 20  # calls per CUDA event pair; pairs per median
 POWMOD_TIMINGS = 7  # event pairs (one launch each) per powmod median
@@ -442,13 +465,14 @@ def run_slice(B: int, seed: int, pre, K):
     for key in POWMOD_PATH:
         if by_mode.get(key, 0) == 0:
             raise AssertionError(f"no powmod launch of {key} during the sign")
-    return by_width, by_mode
+    return by_width, by_mode, shares
 
 
-def check_golden(device: str = "cuda") -> None:
+def check_golden(path: Path = GOLDEN, phase: str = "golden") -> None:
     """The port on the card against the JAX engine's committed signatures:
-    same keys, digests and seeded stream (B=2, 1024-bit fixture), so every
-    byte of (r, s, recovery, ok) must match."""
+    same keys, digests and seeded stream (B=2), so every byte of (r, s,
+    recovery, ok) must match. A golden with a "fixture" signs with the
+    Paillier backend on that key fixture, one without it with OT."""
     import numpy as np
     import torch
 
@@ -456,21 +480,27 @@ def check_golden(device: str = "cuda") -> None:
     from mpcium_tpu_torch.engine import gg18_batch as gb
     from mpcium_tpu_torch.utils.rng import SeededStream
 
-    g = json.loads(GOLDEN.read_text())
+    g = json.loads(path.read_text())
     case = g["cases"][0]
     shares = gb.dealer_keygen_secp_batch(
         case["B"], g["universe"], g["threshold"], rng=SeededStream(case["keygen_seed"])
     )
-    signer = gb.GG18BatchCoSigners(
-        g["quorum"], [shares[g["universe"].index(p)] for p in g["quorum"]],
-        load_test_preparams(1024), dom=gb.Domains(**g["domains"]),
-        rng=SeededStream(case["sign_seed"]), device=device,
-    )
+    quorum_shares = [shares[g["universe"].index(p)] for p in g["quorum"]]
+    if "fixture" in g:
+        signer = gb.GG18BatchCoSigners(
+            g["quorum"], quorum_shares, load_test_preparams(1024),
+            dom=gb.Domains(**g["domains"]), rng=SeededStream(case["sign_seed"]),
+            mta_impl="paillier", device="cuda",
+        )
+    else:
+        signer = gb.GG18BatchCoSigners(
+            g["quorum"], quorum_shares, rng=SeededStream(case["sign_seed"]),
+            mta_impl="ot", device="cuda",
+        )
     digests = np.array([list(bytes.fromhex(d)) for d in case["digests"]], np.uint8)
     t0 = time.perf_counter()
     out = signer.sign(digests, cohorts=case["cohorts"])
-    if device == "cuda":
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     got = {
         "r": [bytes(x).hex() for x in out["r"]],
         "s": [bytes(x).hex() for x in out["s"]],
@@ -478,13 +508,144 @@ def check_golden(device: str = "cuda") -> None:
         "ok": [bool(v) for v in out["ok"]],
     }
     same = all(got[k] == case[k] for k in got)
-    emit({"phase": "golden", "B": case["B"], "cohorts": case["cohorts"],
+    emit({"phase": phase, "B": case["B"], "cohorts": case["cohorts"],
           "matches_jax_golden": same, "sign_s": time.perf_counter() - t0})
     if not same:
         raise AssertionError("signatures differ from the JAX engine's golden")
 
 
+def _cuda_limbs(vals):
+    import torch
+
+    from mpcium_tpu_torch.core import bignum as bn
+
+    return torch.as_tensor(bn.batch_to_limbs(vals, bn.P256), device="cuda")
+
+
+def _synth_leg():
+    """The synthetic OT leg of the committed leg golden, on the card."""
+    from mpcium_tpu_torch.protocol.ecdsa.mta_ot import OTMtALeg
+    from mpcium_tpu_torch.utils import ot_golden as og
+    from mpcium_tpu_torch.utils.rng import DetRng
+
+    tag, k0, k1, delta = og.synth_base_ot()
+    return OTMtALeg.from_base_ot(
+        tag, k0, k1, delta, rng=DetRng(og.SYNTH_SEED + 1000), device="cuda"
+    )
+
+
+def ot_leg_golden() -> None:
+    """Wire transcript, shares and verdicts of the synthetic leg (chunks
+    1 and 2) against the JAX leg's committed record, byte for byte."""
+    import torch
+
+    from mpcium_tpu_torch.utils import ot_golden as og
+
+    want = json.loads(OT_LEG_GOLDEN.read_text())["record"]
+    t0 = time.perf_counter()
+    got = og.leg_record(_synth_leg, _cuda_limbs, want["B"],
+                        chunks=tuple(int(k) for k in want["run_multi"]))
+    torch.cuda.synchronize()
+    diff = sorted(k for k in want if got.get(k) != want[k])
+    diff += sorted(f"run_multi/{k}" for k in want["run_multi"]
+                   if got["run_multi"].get(k) != want["run_multi"][k])
+    emit({"phase": "ot_leg_golden", "B": want["B"], "chunks": sorted(want["run_multi"]),
+          "matches_jax_golden": not diff, "differs": diff,
+          "s": time.perf_counter() - t0})
+    if diff:
+        raise AssertionError(f"OT leg differs from the JAX golden in {diff}")
+
+
+def ot_tamper(B: int = 4) -> None:
+    """Each wire field an active cheater controls, corrupted on its own
+    lane: the blame must be the JAX table's on that lane, None elsewhere."""
+    from mpcium_tpu_torch.utils import ot_golden as og
+
+    t0 = time.perf_counter()
+    rows = []
+    for case, (field, _set, party, check) in enumerate(og.TAMPER_CASES):
+        lane, blames, _verdicts = og.tamper_run(_synth_leg(), _cuda_limbs, B, case)
+        want = [None] * B
+        want[lane] = (party, check)
+        rows.append({"field": field, "lane": lane,
+                     "blame": [list(b) if b else None for b in blames],
+                     "ok": blames == want})
+    emit({"phase": "ot_tamper", "B": B, "cases": rows,
+          "all_blamed_as_jax": all(r["ok"] for r in rows),
+          "s": time.perf_counter() - t0})
+    bad = [r["field"] for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"tamper cases misblamed: {bad}")
+
+
+def run_ot_slice(B: int, seed: int, shares, K) -> None:
+    """The OT backend at B sessions on the slice's wallets: setup (base
+    OTs), a first sign, then the measured warm sign with K0's counters
+    zeroed just before it."""
+    import numpy as np
+    import torch
+
+    from mpcium_tpu_torch.core import hostmath as hm
+    from mpcium_tpu_torch.engine import gg18_batch as gb
+    from mpcium_tpu_torch.protocol.ecdsa.mta_ot import resolve_chunks
+    from mpcium_tpu_torch.utils.rng import SeededStream
+
+    t0 = time.perf_counter()
+    signer = gb.GG18BatchCoSigners(
+        ["node0", "node1"], [shares[0], shares[1]],
+        rng=SeededStream(seed + 11), mta_impl="ot", device="cuda",
+    )
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    drng = np.random.default_rng(seed + 12)
+    first = drng.integers(0, 256, (B, 32), dtype=np.uint8)
+    t0 = time.perf_counter()
+    out = signer.sign(first, cohorts=COHORTS)
+    torch.cuda.synchronize()
+    first_sign_s = time.perf_counter() - t0
+    if not out["ok"].all():
+        raise AssertionError(f"OT first sign: ok={int(out['ok'].sum())}/{B}")
+    digests = drng.integers(0, 256, (B, 32), dtype=np.uint8)
+    phases: dict = {}
+    K.reset_counters()
+    t0 = time.perf_counter()
+    out = signer.sign(digests, phase_times=phases, cohorts=COHORTS)
+    torch.cuda.synchronize()
+    sign_s = time.perf_counter() - t0
+    k0_launches = (K.launches + sum(K.powmod_launches_by_mode_width.values()),
+                   K.plain_calls)
+    blame = {f"{signer.ids[a]}->{signer.ids[b]}": leg.check_blame()
+             for (a, b), leg in signer.ot_legs.items()}
+    clean = all(v is not None and not any(v) for v in blame.values())
+    t0 = time.perf_counter()
+    verified = 0
+    for i in range(B):
+        pub = hm.secp_decompress(shares[0][i].public_key)
+        r = int.from_bytes(out["r"][i].tobytes(), "big")
+        s = int.from_bytes(out["s"][i].tobytes(), "big")
+        verified += hm.ecdsa_verify(pub, int.from_bytes(digests[i].tobytes(), "big"), r, s)
+    verify_s = time.perf_counter() - t0
+    timings = signer.ot_timings or {}
+    emit({
+        "phase": "ot_slice", "B": B, "cohorts": COHORTS, "ot_chunks": resolve_chunks(B),
+        "seed": seed, "keygen": "the slice phase's wallets", "setup_s": setup_s,
+        "first_sign_s": first_sign_s, "sign_s": sign_s, "sigs_per_s": B / sign_s,
+        "phases_s": phases, "run_multi_timings_s": timings,
+        "checks_share_of_r2": timings.get("checks_s", 0.0) / phases["r2_mta_ot"],
+        "host_verify_s": verify_s, "ok_all": bool(out["ok"].all()), "verified": verified,
+        "blame_clean": clean, "k0_launches": k0_launches[0], "plain_calls": k0_launches[1],
+    })
+    if not out["ok"].all() or verified != B:
+        raise AssertionError(f"OT signatures: ok={int(out['ok'].sum())}/{B} "
+                             f"verified={verified}/{B}")
+    if not clean:
+        raise AssertionError(f"OT legs blamed a party on an honest run: {blame}")
+    if k0_launches != (0, 0):
+        raise AssertionError(f"the OT sign reached K0 or its plain versions: {k0_launches}")
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=1024, help="sessions B")
     ap.add_argument("--seed", type=int, default=1)
@@ -523,7 +684,7 @@ def main() -> int:
     pre = load_test_preparams(2048)
     widths = kernel_vs_plain(1024, args.seed, pre, K, mm, bn)
     pm = powmod_vs_plain(1024, args.seed, pre, K, mm, bn)
-    by_width, by_mode = run_slice(args.batch, args.seed, pre, K)
+    by_width, by_mode, shares = run_slice(args.batch, args.seed, pre, K)
     emit({
         "phase": "wrapper_host", "note": "launches in the warm sign x host ms "
         "per wrapper call at B=1024 (kernel_vs_plain, powmod_vs_plain)",
@@ -533,6 +694,12 @@ def main() -> int:
                         for key, eb in POWMOD_PATH.items()) / 1e3,
     })
     check_golden()
+    ot_leg_golden()
+    ot_tamper()
+    run_ot_slice(args.batch, args.seed, shares, K)
+    check_golden(OT_GOLDEN, "ot_golden")
+    emit({"phase": "wall", "script_s": time.perf_counter() - t_script,
+          "note": "from the start of main() to here"})
 
     kernels = []
     for n, rec in sorted(widths.items()):

@@ -1,8 +1,17 @@
-"""Batched GG18 threshold-ECDSA signing with Paillier MtA (PyTorch).
+"""Batched GG18 threshold-ECDSA signing (PyTorch).
 
-The port of ``mpcium_tpu/engine/gg18_batch.py`` (Paillier path): B
-concurrent (t+1)-of-n signing sessions whose round compute is batched
-per party on one device.
+The port of ``mpcium_tpu/engine/gg18_batch.py``: B concurrent (t+1)-of-n
+signing sessions whose round compute is batched per party on one device.
+The MtA runs on one of two backends, ``mta_impl`` (default
+``MPCIUM_MTA``, else ``"paillier"``):
+
+- ``"paillier"``: the GG18 MtA with range proofs, below;
+- ``"ot"``: Gilboa multiplication over IKNP-extended OTs with KOS,
+  Gilboa-encoding and consistency checks (:mod:`protocol.ecdsa.mta_ot`);
+  no Paillier anywhere, and a lane whose check fails aborts the cohort
+  with the culprit named (:class:`engine.abort.CohortAbort`);
+- ``"none"`` (:meth:`GG18BatchCoSigners.curve_only`): curve state only,
+  for sharding probes; it cannot sign.
 
 - curve ops ride :mod:`core.secp256k1` (12-bit limbs);
 - Paillier / ring-Pedersen arithmetic rides :mod:`ops.modmul` via
@@ -18,8 +27,6 @@ Randomness: every secret is drawn through ``rng.token_bytes`` /
 cohort split. Batch verification of the s^N ciphertext legs follows
 ``MPCIUM_BATCH_VERIFY`` (``rand``: one combined small-exponent check with
 a strict per-session fallback; ``strict``: per session).
-
-The OT-MtA backend (``mta_impl="ot"``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -42,8 +49,10 @@ from ..ops import modmul as mm
 from ..ops.paillier_mxu import RAND_BITS, PaillierMXU, PaillierMXUPrivate
 from ..ops.sha256 import sha256 as dev_sha256
 from ..protocol.base import KeygenShare, party_xs
+from ..protocol.ecdsa import mta_ot
 from ..utils.tracing import PhaseTimer
 from . import pipeline as pl
+from .abort import CohortAbort
 
 Q = hm.SECP_N
 SCALAR_BITS = 256
@@ -720,20 +729,31 @@ class GG18BatchCoSigners:
         quorum_xs = [universe_xs[p] for p in party_ids]
         self.pairs = [(a, b) for a in range(self.q) for b in range(self.q) if a != b]
         self.mta_impl = mta_impl or os.environ.get("MPCIUM_MTA", "paillier")
-        if self.mta_impl == "ot":
-            raise NotImplementedError(
-                "mta_impl='ot' is not ported to PyTorch yet (paillier only)"
+        if self.mta_impl not in ("paillier", "ot", "none"):
+            raise ValueError(
+                f"MPCIUM_MTA={self.mta_impl!r}: expected 'paillier' or 'ot'"
             )
-        if self.mta_impl != "paillier":
-            raise ValueError(f"mta_impl={self.mta_impl!r}: expected 'paillier'")
-        if preparams is None:
-            raise ValueError("mta_impl='paillier' requires preparams")
-        self.ctx = [
-            PartyCtx(pid, preparams[pid], rng, device=self.device) for pid in party_ids
-        ]
-        self.mta = {
-            (a, b): MtaBatch(self.ctx[a], self.ctx[b], dom) for (a, b) in self.pairs
-        }
+        self.ctx = self.mta = self.ot_legs = None
+        self.ot_timings: Optional[Dict[str, float]] = None
+        if self.mta_impl == "ot":
+            mta_ot.require_device_path()
+            # one leg per ordered pair, base OTs drawn in pair order
+            self.ot_legs = {
+                (a, b): mta_ot.OTMtALeg(
+                    f"{party_ids[a]}->{party_ids[b]}", rng=rng, device=self.device
+                )
+                for (a, b) in self.pairs
+            }
+        elif self.mta_impl == "paillier":
+            if preparams is None:
+                raise ValueError("mta_impl='paillier' requires preparams")
+            self.ctx = [
+                PartyCtx(pid, preparams[pid], rng, device=self.device)
+                for pid in party_ids
+            ]
+            self.mta = {
+                (a, b): MtaBatch(self.ctx[a], self.ctx[b], dom) for (a, b) in self.pairs
+            }
         # additive shares w_i = λ_i·x_i mod q (λ shared across the batch)
         self.w = []
         self.W_pts = []
@@ -751,6 +771,20 @@ class GG18BatchCoSigners:
             self.W_pts.append(W)
         pubs = [hm.secp_decompress(s.public_key) for s in party_shares[0]]
         self.Y = sp.from_host(pubs, self.device)
+
+    @classmethod
+    def curve_only(
+        cls,
+        party_ids: Sequence[str],
+        party_shares: Sequence[Sequence[KeygenShare]],
+        rng=secrets,
+        *,
+        device=None,
+    ) -> "GG18BatchCoSigners":
+        """Curve state (w, W_pts, Y) without any MtA machinery, for
+        sharding probes that run the batched point math but never the
+        protocol. ``sign()`` raises."""
+        return cls(party_ids, party_shares, None, rng=rng, mta_impl="none", device=device)
 
     # -- small helpers -------------------------------------------------------
 
@@ -780,6 +814,8 @@ class GG18BatchCoSigners:
         ``cohorts``: counter-phase cohort count of the signing tail
         (None → ``MPCIUM_PIPELINE_COHORTS``, default 2); signatures are
         bit-identical for every count."""
+        if self.mta_impl == "none":
+            raise RuntimeError("curve_only signer has no MtA contexts — cannot sign()")
         dev = self.device
         pt = PhaseTimer(dev, phase_times)
         B, q = self.B, self.q
@@ -799,6 +835,16 @@ class GG18BatchCoSigners:
             Gamma.append(p_)
             Gamma_comp.append(comp)
             g_commit.append(commit)
+
+        if self.mta_impl == "ot":
+            pt.mark("r1_commit_encrypt_rangeproof")
+            alpha_shares, beta_shares = self._mta_ot(k, gamma, phase_times is not None)
+            pt.mark("r2_mta_ot")
+            return self._finish_sign(
+                pt, phase_times, m, torch.ones((B,), dtype=torch.bool, device=dev),
+                k, gamma, Gamma, Gamma_comp, g_commit, g_blind, alpha_shares,
+                beta_shares, cohorts=cohorts,
+            )
 
         c_k, u_k, k_plain = [], [], []
         for i in range(q):
@@ -870,6 +916,37 @@ class GG18BatchCoSigners:
             pt, phase_times, m, ok, k, gamma, Gamma, Gamma_comp, g_commit,
             g_blind, alpha_shares, beta_shares, cohorts=cohorts,
         )
+
+    def _mta_ot(self, k, gamma, timed: bool):
+        """The OT path's rounds 1-3: per ordered pair one extension serves
+        both products, α + β ≡ k_a·γ_b and k_a·w_b (mod q). Every leg runs
+        its checks; a blamed lane aborts the cohort naming the offending
+        (lane, party, check), the first blame of a lane in pair order
+        (Alice of leg (a, b) is party a, Bob party b). → (alpha_shares,
+        beta_shares) keyed (a, b, "gamma" | "w")."""
+        chunks = mta_ot.resolve_chunks(self.B)
+        self.ot_timings = {} if timed else None
+        alpha_shares, beta_shares = {}, {}
+        for (a, b) in self.pairs:
+            shares = self.ot_legs[(a, b)].run_multi(
+                k[a], (gamma[b], self.w[b]), chunks=chunks, timings=self.ot_timings,
+            )
+            for name, (al, be) in zip(("gamma", "w"), shares):
+                alpha_shares[(a, b, name)] = al
+                beta_shares[(a, b, name)] = be
+        blamed: Dict[int, Tuple[str, str]] = {}
+        for (a, b) in self.pairs:
+            for lane, verdict in enumerate(self.ot_legs[(a, b)].check_blame() or ()):
+                if verdict is None or lane in blamed:
+                    continue
+                role, check = verdict
+                blamed[lane] = (self.ids[a] if role == "alice" else self.ids[b], check)
+        if blamed:
+            raise CohortAbort(
+                [(lane, pid, check) for lane, (pid, check) in sorted(blamed.items())],
+                engine="gg18.sign",
+            )
+        return alpha_shares, beta_shares
 
     def _finish_sign(
         self, pt, phase_times, m, ok, k, gamma, Gamma, Gamma_comp, g_commit,

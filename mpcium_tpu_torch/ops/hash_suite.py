@@ -1,6 +1,14 @@
-"""Batched SHA-256 on the device (FIPS 180-4), fixed message length.
+"""Batched SHA-256 on the device (FIPS 180-4) and the OT hot-path hashes.
 
-The SHA-256 half of ``mpcium_tpu/ops/hash_suite.py``. torch has no
+The SHA-256 half of ``mpcium_tpu/ops/hash_suite.py`` plus its OT half:
+the IKNP PRG expansion, the packed bit transpose and the per-OT pad
+hash (:func:`prg_expand_core`, :func:`ot_transpose_core`,
+:func:`pad_hash_core`), byte for byte the JAX functions. The JAX
+package's jitted entries (``prg_expand_device``, ``ot_transpose_device``,
+``pad_hash_device``) are plain functions here that take a device. Bytes
+are uint8 tensors; counters and indices are int64 (no uint32 in torch).
+
+torch has no
 uint32 shifts on the CPU, so 32-bit words are held in int64 tensors and
 masked with ``& 0xFFFFFFFF`` after every add; right rotations take one
 shift of the word doubled into the high half (``x | x << 32``). The
@@ -112,3 +120,125 @@ def sha256_core(data: torch.Tensor, msg_len: int) -> torch.Tensor:
 def sha256(data: torch.Tensor) -> torch.Tensor:
     """Batched SHA-256 over the last axis: (..., L) uint8 → (..., 32)."""
     return sha256_core(data, data.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# OT hot path: PRG expansion, packed bit transpose, pad hash
+# ---------------------------------------------------------------------------
+
+
+def le16_bytes(x: torch.Tensor) -> torch.Tensor:
+    """int64 (...,) → (..., 2) little-endian uint8."""
+    return torch.stack([x & 0xFF, (x >> 8) & 0xFF], dim=-1).to(torch.uint8)
+
+
+def le32_bytes(x: torch.Tensor) -> torch.Tensor:
+    """int64 (...,) → (..., 4) little-endian uint8."""
+    return torch.stack(
+        [(x >> (8 * i)) & 0xFF for i in range(4)], dim=-1
+    ).to(torch.uint8)
+
+
+def as_bytes(data, device=None) -> torch.Tensor:
+    """bytes / numpy uint8 / tensor → uint8 tensor on ``device`` (None:
+    a tensor stays where it is, host data goes to the CPU)."""
+    if isinstance(data, torch.Tensor):
+        return data.to(torch.uint8) if device is None else data.to(device, torch.uint8)
+    if isinstance(data, (bytes, bytearray)):
+        data = np.frombuffer(bytes(data), np.uint8)
+    arr = np.asarray(data, dtype=np.uint8)
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    return torch.as_tensor(arr, device=device)
+
+
+def prg_expand_core(
+    seeds: torch.Tensor, prefix: torch.Tensor, nblk: int, blk_off: int
+) -> torch.Tensor:
+    """(..., n, 32) uint8 seeds → (..., n, nblk·32) keystream, block
+    (j, b) = sha256(prefix ‖ seed_j ‖ le16(j) ‖ le32(blk_off + b)), j
+    counting along the seed axis. ``blk_off`` starts the block counter
+    mid-stream, so a chunk of the expansion equals the matching slice of
+    the full one. Leading axes stack independent seed matrices into one
+    hash call."""
+    lead, n = seeds.shape[:-2], seeds.shape[-2]
+    P, dev = prefix.shape[0], seeds.device
+    shape = lead + (n, nblk)
+    j_le = le16_bytes(torch.arange(n, dtype=torch.int64, device=dev))
+    blk_le = le32_bytes(
+        int(blk_off) + torch.arange(nblk, dtype=torch.int64, device=dev)
+    )
+    msg = torch.cat(
+        [
+            prefix.expand(shape + (P,)),
+            seeds[..., None, :].expand(shape + (32,)),
+            j_le[:, None, :].expand(shape + (2,)),
+            blk_le.expand(shape + (4,)),
+        ],
+        dim=-1,
+    )
+    return sha256_core(msg, P + 38).reshape(lead + (n, nblk * 32))
+
+
+def prg_expand(prefix: bytes, seeds, nblk: int, blk_off: int = 0,
+               device=None) -> torch.Tensor:
+    """Entry matching ``native.prg_expand``: (n, 32) seeds → (n, nblk·32)
+    keystream on ``device`` (default: the seeds' device)."""
+    seeds = as_bytes(seeds, device)
+    return prg_expand_core(seeds, as_bytes(prefix, seeds.device), nblk, blk_off)
+
+
+def pack_bits_core(bits: torch.Tensor) -> torch.Tensor:
+    """(..., 8k) 0/1 → (..., k) packed little-bitorder uint8 (the twin
+    of ``np.packbits(..., bitorder="little")``)."""
+    k = bits.shape[-1] // 8
+    grouped = bits.reshape(bits.shape[:-1] + (k, 8)).to(torch.int64)
+    w = torch.arange(8, dtype=torch.int64, device=bits.device)
+    return (grouped << w).sum(-1).to(torch.uint8)
+
+
+def unpack_bits_core(packed: torch.Tensor) -> torch.Tensor:
+    """(..., k) uint8 → (..., 8k) 0/1 uint8, little bitorder."""
+    sh = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bits = (packed.unsqueeze(-1) >> sh) & 1
+    return bits.reshape(packed.shape[:-1] + (packed.shape[-1] * 8,))
+
+
+def ot_transpose_core(packed: torch.Tensor) -> torch.Tensor:
+    """(R, C) packed little-bitorder bytes → the packed transpose
+    (8C, R/8); R must be a multiple of 8."""
+    return pack_bits_core(unpack_bits_core(packed).T)
+
+
+def ot_transpose(packed, device=None) -> torch.Tensor:
+    """Entry for wire bytes: (R, C) packed → (8C, R/8) on ``device``."""
+    return ot_transpose_core(as_bytes(packed, device))
+
+
+def pad_hash_core(
+    prefix: torch.Tensor, rows: torch.Tensor, idx_le: torch.Tensor
+) -> torch.Tensor:
+    """Per-OT correlation pads H(prefix ‖ row_j ‖ le32(index_j)):
+    prefix (..., P), rows (..., M, r), idx_le (M, 4) → (..., M, 32), the
+    leading axes broadcast (several pad domains or row sets per call)."""
+    M, P = rows.shape[-2], prefix.shape[-1]
+    lead = torch.broadcast_shapes(prefix.shape[:-1], rows.shape[:-2])
+    msg = torch.cat(
+        [
+            prefix[..., None, :].expand(lead + (M, P)),
+            rows.expand(lead + rows.shape[-2:]),
+            idx_le.expand(lead + (M, 4)),
+        ],
+        dim=-1,
+    )
+    return sha256_core(msg, msg.shape[-1])
+
+
+def pad_hash(prefix: bytes, rows, m_off: int = 0, device=None) -> torch.Tensor:
+    """Pads for OT indices [m_off, m_off + M) of (M, r) rows on
+    ``device``."""
+    rows = as_bytes(rows, device)
+    idx = le32_bytes(
+        int(m_off) + torch.arange(rows.shape[0], dtype=torch.int64, device=rows.device)
+    )
+    return pad_hash_core(as_bytes(prefix, rows.device), rows, idx)

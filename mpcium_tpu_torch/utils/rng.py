@@ -43,3 +43,23 @@ class SeededStream:
             v = self.randbits(k)
             if v < n:
                 return v
+
+
+class DetRng:
+    """The JAX package's test stream for OT legs (``tests/test_tamper_checks.py``):
+    SHA-256 of ``advrng|seed|ctr`` blocks; ``randbelow`` reduces 40 bytes.
+    Synthetic base-OT keys and payload randomness for leg goldens."""
+
+    def __init__(self, seed: int):
+        self.seed = seed
+        self.ctr = 0
+
+    def token_bytes(self, n: int) -> bytes:
+        out = bytearray()
+        while len(out) < n:
+            out += hashlib.sha256(b"advrng|%d|%d" % (self.seed, self.ctr)).digest()
+            self.ctr += 1
+        return bytes(out[:n])
+
+    def randbelow(self, n: int) -> int:
+        return int.from_bytes(self.token_bytes(40), "big") % n

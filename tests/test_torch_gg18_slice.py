@@ -220,7 +220,7 @@ def test_tampered_bob_proof_is_attributed_to_its_session():
     assert mta.alice_check_bob(c_a, Tb, bad, e_b, rng=rng).tolist() == [True, False]
 
 
-def test_entry_points_need_an_explicit_cpu_device_without_a_gpu():
+def test_entry_points_need_an_explicit_cpu_device_without_a_gpu(monkeypatch):
     from mpcium_tpu_torch.cluster import load_test_preparams
     from mpcium_tpu_torch.engine import gg18_batch as gb
     from mpcium_tpu_torch.utils.rng import SeededStream
@@ -228,12 +228,18 @@ def test_entry_points_need_an_explicit_cpu_device_without_a_gpu():
     shares = gb.dealer_keygen_secp_batch(2, UNIVERSE, 1, rng=SeededStream(3))
     pair = [shares[0], shares[1]]
     pre = load_test_preparams(1024)
-    with pytest.raises(NotImplementedError, match="ot"):
-        gb.GG18BatchCoSigners(QUORUM, pair, pre, mta_impl="ot", device="cpu")
+    with pytest.raises(ValueError, match="expected 'paillier' or 'ot'"):
+        gb.GG18BatchCoSigners(QUORUM, pair, pre, mta_impl="dkls", device="cpu")
+    with monkeypatch.context() as mp:
+        mp.setenv("MPCIUM_OT_DEVICE", "0")
+        with pytest.raises(NotImplementedError, match="host pipelined"):
+            gb.GG18BatchCoSigners(QUORUM, pair, mta_impl="ot", device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         gb.GG18BatchCoSigners(QUORUM, pair, pre)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gb.GG18BatchCoSigners(QUORUM, pair, mta_impl="ot")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         gb.PartyCtx("node0", pre["node0"])
 
