@@ -63,11 +63,37 @@ consistency checks; it launches no K0):
 9. ot_golden — the B=2 case of the JAX engine's committed OT golden
    signed on the card: (r, s, recovery, ok) byte for byte.
 
+Batched threshold-EdDSA (2-of-3 Ed25519: SHA-512, the edwards25519
+group, the EdDSA engine and the batched party; plain torch, no K0):
+
+10. sha512_vs_hashlib — 64 random rows at each of the lengths 0, 96,
+    111, 112, 128, 239 and 240, and EDDSA_B challenge-shaped rows of 96
+    bytes: every digest must equal hashlib's.
+11. ed25519_edges — the edge table of encodings (every y ≥ p and its
+    sign twin, non-residues, x = 0 with the sign bit, torsion points):
+    decode ok masks, round-tripped encodings, and fixed- and
+    variable-base products at 0, 1, l-1, l and 2^256-1 must equal the
+    JAX package's committed golden ``ed25519_edges.json``.
+12. eddsa_golden — the JAX engine's signatures and ok masks at B=4
+    (cohorts 1 and 2) and its ``fused_sign_step`` output
+    (``eddsa_b4.json``), and the JAX party's wire messages and results
+    (``eddsa_party_b4.json``), byte for byte.
+13. eddsa_slice — ``dealer_keygen_batch`` of EDDSA_B wallets (2-of-3,
+    from --seed), a first sign and the measured warm sign (phases,
+    sigs/s) of EDDSA_B 32-byte messages at cohorts=2; every ok true,
+    every signature verified on the host, one flipped byte of one
+    lane's s fails device verification on that lane only, and the K0
+    counters, zeroed just before the warm sign, read 0.
+14. eddsa_party — two ``BatchedEDDSASigningParty`` (node0, node1) over
+    the slice's first EDDSA_PARTY_B wallets, driven by ``run_protocol``
+    with span recording on: seconds per party round; both results all
+    ok, equal, and verified on the host.
+
 Then the script's wall time, a ``{"kernels": [...]}`` line, the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero.
 
-    python3 chip_smoke.py [--batch 1024] [--seed 1]
+    python3 chip_smoke.py [--batch 1024] [--eddsa-batch 4096] [--seed 1]
 """
 from __future__ import annotations
 
@@ -86,6 +112,8 @@ GOLDEN = GOLDENS / "gg18_paillier_b2_1024.json"
 OT_GOLDEN = GOLDENS / "gg18_ot_b2.json"
 OT_LEG_GOLDEN = GOLDENS / "ot_leg_b4.json"
 COHORTS = 2
+EDDSA_B = 4096  # BASELINE config 2: a 2-of-3 Ed25519 sign of 4096 wallets
+EDDSA_PARTY_B = 1024
 REPS, GROUPS = 100, 20  # calls per CUDA event pair; pairs per median
 POWMOD_TIMINGS = 7  # event pairs (one launch each) per powmod median
 # (mode, n) of every powmod the signing path launches, and the exponent
@@ -644,10 +672,209 @@ def run_ot_slice(B: int, seed: int, shares, K) -> None:
         raise AssertionError(f"the OT sign reached K0 or its plain versions: {k0_launches}")
 
 
+def _record_diff(got: dict, want: dict) -> list:
+    return sorted(k for k in want if got.get(k) != want[k])
+
+
+def sha512_vs_hashlib(B: int, seed: int, dev: str = "cuda") -> None:
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from mpcium_tpu_torch.ops import hash_suite as hs
+
+    rng = np.random.default_rng(seed + 30)
+    cases = [(64, n) for n in (0, 96, 111, 112, 128, 239, 240)] + [(B, 96)]
+    t_ms = None
+    for rows, n in cases:
+        data = rng.integers(0, 256, (rows, n), dtype=np.uint8)
+        x = torch.as_tensor(data, device=dev)
+        hs.sha512(x)  # warm
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = hs.sha512(x).cpu().numpy()
+        t_ms = (time.perf_counter() - t0) * 1e3
+        for i in range(rows):
+            if got[i].tobytes() != hashlib.sha512(data[i].tobytes()).digest():
+                raise AssertionError(f"sha512: row {i} of length {n} != hashlib")
+    emit({"phase": "sha512_vs_hashlib", "lengths": [n for _, n in cases],
+          "rows": [r for r, _ in cases], "equal": True,
+          "challenge_batch_ms": t_ms, "note": "host clock, synchronized by the copy out"})
+
+
+def ed25519_edges(dev: str = "cuda") -> None:
+    import torch
+
+    from mpcium_tpu_torch.core import ed25519 as ed
+    from mpcium_tpu_torch.utils import eddsa_golden as eg
+
+    want = json.loads((GOLDENS / "ed25519_edges.json").read_text())["record"]
+    t0 = time.perf_counter()
+    got = eg.edges_record(ed, lambda a: torch.as_tensor(a, device=dev))
+    diff = _record_diff(got, want)
+    emit({"phase": "ed25519_edges", "encodings": len(want["encodings"]),
+          "invalid": want["decompress_ok"].count(False), "scalars": want["scalars"],
+          "matches_jax_golden": not diff, "differs": diff, "s": time.perf_counter() - t0})
+    if diff:
+        raise AssertionError(f"ed25519 edge table differs from the JAX golden in {diff}")
+
+
+def eddsa_golden(dev: str = "cuda") -> None:
+    import torch
+
+    from mpcium_tpu_torch.engine import eddsa_batch as eb
+    from mpcium_tpu_torch.protocol.eddsa.batch_signing import BatchedEDDSASigningParty
+    from mpcium_tpu_torch.protocol.runner import run_protocol
+    from mpcium_tpu_torch.utils import eddsa_golden as eg
+
+    to_dev = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    t0 = time.perf_counter()
+    engine = eg.engine_record(eb, to_dev, device=dev)
+    party = eg.party_record(eb, BatchedEDDSASigningParty, run_protocol, device=dev)
+    diff = [f"engine/{k}" for k in _record_diff(
+        engine, json.loads((GOLDENS / "eddsa_b4.json").read_text())["record"])]
+    diff += [f"party/{k}" for k in _record_diff(
+        party, json.loads((GOLDENS / "eddsa_party_b4.json").read_text())["record"])]
+    emit({"phase": "eddsa_golden", "B": eg.B, "cohorts": eg.ENGINE["cohorts"],
+          "matches_jax_golden": not diff, "differs": diff, "s": time.perf_counter() - t0})
+    if diff:
+        raise AssertionError(f"EdDSA differs from the JAX goldens in {diff}")
+
+
+def _sync(dev: str) -> None:
+    import torch
+
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def _host_verified(shares, msgs, sigs) -> int:
+    from mpcium_tpu_torch.core import hostmath as hm
+
+    return sum(hm.ed25519_verify(s.public_key, m, sig.tobytes())
+               for s, m, sig in zip(shares, msgs, sigs))
+
+
+def run_eddsa_slice(B: int, seed: int, K, dev: str = "cuda"):
+    """BASELINE config 2 on the card: setup, a first sign, then the
+    measured warm sign with K0's counters zeroed just before it."""
+    import numpy as np
+    import torch
+
+    from mpcium_tpu_torch.engine import eddsa_batch as eb
+    from mpcium_tpu_torch.utils.rng import SeededStream
+
+    t0 = time.perf_counter()
+    shares = eb.dealer_keygen_batch(B, ["node0", "node1", "node2"], 1, rng=SeededStream(seed))
+    keygen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    signer = eb.BatchedCoSigners(["node0", "node1"], shares[:2],
+                                 rng=SeededStream(seed + 21), device=dev)
+    _sync(dev)
+    setup_s = time.perf_counter() - t0
+    mrng = np.random.default_rng(seed + 22)
+    first = [r.tobytes() for r in mrng.integers(0, 256, (B, 32), dtype=np.uint8)]
+    t0 = time.perf_counter()
+    sigs, ok = signer.sign(first, cohorts=COHORTS)
+    _sync(dev)
+    first_sign_s = time.perf_counter() - t0
+    if not ok.all():
+        raise AssertionError(f"EdDSA first sign: ok={int(ok.sum())}/{B}")
+    msgs = [r.tobytes() for r in mrng.integers(0, 256, (B, 32), dtype=np.uint8)]
+    phases: dict = {}
+    if K is not None:
+        K.reset_counters()
+    t0 = time.perf_counter()
+    sigs, ok = signer.sign(msgs, cohorts=COHORTS, phase_times=phases)
+    _sync(dev)
+    sign_s = time.perf_counter() - t0
+    k0 = (K.launches + sum(K.powmod_launches_by_mode_width.values()), K.plain_calls) \
+        if K is not None else (0, 0)
+    t0 = time.perf_counter()
+    verified = _host_verified(shares[0], msgs, sigs)
+    verify_s = time.perf_counter() - t0
+    # one flipped byte of one lane's s: device verification fails there only
+    lane = B // 3
+    bad = sigs.copy()
+    bad[lane, 40] ^= 0x10
+    c64 = eb.challenge_hashes(bad[:, :32], signer.A_comp, msgs, dev)
+    t0 = time.perf_counter()
+    dev_ok = eb.verify_signatures(torch.as_tensor(bad, device=dev), signer._A_dev,
+                                  torch.as_tensor(c64, device=dev)).cpu().numpy()
+    tamper_verify_s = time.perf_counter() - t0
+    tamper_ok = (not dev_ok[lane]) and bool(np.delete(dev_ok, lane).all())
+    from mpcium_tpu_torch.engine.pipeline import resolve_cohorts
+
+    emit({
+        "phase": "eddsa_slice", "B": B, "cohorts": resolve_cohorts(B, COHORTS), "seed": seed,
+        "scheme": "2-of-3 Ed25519, quorum node0/node1, 32-byte messages",
+        "keygen_s": keygen_s, "setup_s": setup_s, "first_sign_s": first_sign_s,
+        "sign_s": sign_s, "sigs_per_s": B / sign_s, "phases_s": phases,
+        "host_verify_s": verify_s, "ok_all": bool(ok.all()), "verified": verified,
+        "tamper_lane": lane, "tamper_rejected_on_that_lane_only": tamper_ok,
+        "tamper_verify_s": tamper_verify_s, "k0_launches": k0[0], "plain_calls": k0[1],
+    })
+    if not ok.all() or verified != B:
+        raise AssertionError(f"EdDSA signatures: ok={int(ok.sum())}/{B} verified={verified}/{B}")
+    if not tamper_ok:
+        raise AssertionError("device verification did not isolate the tampered lane")
+    if k0 != (0, 0):
+        raise AssertionError(f"the EdDSA sign reached K0 or its plain versions: {k0}")
+    return shares
+
+
+def run_eddsa_party(B: int, seed: int, shares, dev: str = "cuda") -> None:
+    """Two batched parties through the in-process runner, with span
+    recording on: wall seconds per runner round (summed over parties)."""
+    import numpy as np
+
+    from mpcium_tpu_torch.protocol.eddsa.batch_signing import BatchedEDDSASigningParty
+    from mpcium_tpu_torch.protocol.runner import run_protocol
+    from mpcium_tpu_torch.utils import tracing
+    from mpcium_tpu_torch.utils.rng import SeededStream
+
+    quorum = ["node0", "node1"]
+    msgs = [r.tobytes() for r in np.random.default_rng(seed + 23).integers(
+        0, 256, (B, 32), dtype=np.uint8)]
+    parties = {
+        pid: BatchedEDDSASigningParty(f"chip-smoke-{seed}", pid, quorum, shares[i][:B], msgs,
+                                      rng=SeededStream(seed + 24 + i), cohorts=COHORTS,
+                                      device=dev)
+        for i, pid in enumerate(quorum)
+    }
+    spans: list = []
+    tracing.enable(spans.append)
+    t0 = time.perf_counter()
+    try:
+        run_protocol(parties)
+        _sync(dev)
+    finally:
+        tracing.disable()
+    wall_s = time.perf_counter() - t0
+    rounds: dict = {}
+    for sp in spans:
+        if sp["name"].startswith(("round:", "phase:")):
+            rounds[sp["name"]] = rounds.get(sp["name"], 0.0) + (sp["t1_ns"] - sp["t0_ns"]) / 1e9
+    res = [parties[p].result for p in quorum]
+    same = bool(np.array_equal(res[0]["signatures"], res[1]["signatures"]))
+    t0 = time.perf_counter()
+    verified = _host_verified(shares[0][:B], msgs, res[0]["signatures"])
+    emit({"phase": "eddsa_party", "B": B, "parties": quorum, "wall_s": wall_s,
+          "seconds_by_round": rounds, "ok_all": all(bool(r["ok"].all()) for r in res),
+          "parties_agree": same, "verified": verified,
+          "host_verify_s": time.perf_counter() - t0})
+    if not all(r["ok"].all() for r in res) or not same or verified != B:
+        raise AssertionError(f"EdDSA party: ok/agree/verified failed ({verified}/{B})")
+
+
+
 def main() -> int:
     t_script = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=1024, help="sessions B")
+    ap.add_argument("--eddsa-batch", type=int, default=EDDSA_B, help="EdDSA sessions")
     ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args()
 
@@ -698,6 +925,11 @@ def main() -> int:
     ot_tamper()
     run_ot_slice(args.batch, args.seed, shares, K)
     check_golden(OT_GOLDEN, "ot_golden")
+    sha512_vs_hashlib(args.eddsa_batch, args.seed)
+    ed25519_edges()
+    eddsa_golden()
+    ed_shares = run_eddsa_slice(args.eddsa_batch, args.seed, K)
+    run_eddsa_party(min(EDDSA_PARTY_B, args.eddsa_batch), args.seed, ed_shares)
     emit({"phase": "wall", "script_s": time.perf_counter() - t_script,
           "note": "from the start of main() to here"})
 

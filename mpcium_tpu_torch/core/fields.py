@@ -1,8 +1,10 @@
-"""Batched prime-field arithmetic for secp256k1 (PyTorch).
+"""Batched prime-field arithmetic for the two curve fields (PyTorch).
 
-The port of ``mpcium_tpu/core/fields.py``. p = 2^256 - c is
-pseudo-Mersenne, so limbs above the 264-bit P256 capacity fold back
-multiplied by ``c·2^8`` (2^264 ≡ c·2^8 mod p).
+The port of ``mpcium_tpu/core/fields.py``. Both primes are
+pseudo-Mersenne, p = 2^k - c (secp256k1: k = 256, c = 2^32 + 977;
+ed25519: k = 255, c = 19), so limbs above the 264-bit P256 capacity
+fold back multiplied by ``c·2^(264-k)`` (2^264 ≡ c·2^(264-k) mod p):
+c·2^8 for secp256k1, 19·2^9 for ed25519.
 
 Representation. An element is a (..., 22) float64 tensor of 12-bit-radix
 limbs that is only *weakly* normalized: every limb is an integer in
@@ -20,10 +22,20 @@ the high columns, two passes, a second fold matmul and two wrapped
 passes: fifteen launches. Every intermediate is an integer below 2^53,
 so float64 is exact; no value goes through TF32 or bf16.
 
-Bounds (inputs with limbs < 2^13): outer-product entries < 2^26; folded
-columns < 22·2^26·(1+256+61+16) < 2^39; after two passes limbs < 2^15.2;
-the second fold gives columns < 2^23.6; two wrapped passes end below
-2^13. tests/test_torch_curve.py drives all-ones inputs.
+Bounds of a product (inputs with limbs < 2^13; outer-product entries
+< 2^26). secp256k1, fold limbs (256, 61, 0, 16): folded columns <
+22·2^26·(1+256+61+16) < 2^39; after two passes limbs < 2^15.2; the
+second fold gives columns < 2^23.6; two wrapped passes end below 2^13.
+ed25519, fold limbs (1536, 2): folded columns < 22·2^26·(1+1536+2) <
+2^41 (the fold lands below column 22, so limbs 22–26 hold only carries);
+after two passes limbs < 2^17.1; the second fold gives columns <
+2^22.7; the first wrapped pass leaves limb 0 below 2^15.7 and the
+second brings every limb below 2^13 (limb 0 at most 4095 + 1536).
+Sums and differences wrap once for secp256k1 and twice for ed25519
+(``_lin_wraps``). ed25519's top limb holds 3 bits (k = 21·12 + 3):
+:meth:`canonical` takes its quotient from the low 3 bits' overflow.
+tests/test_torch_curve.py and tests/test_torch_ed25519.py drive
+all-ones inputs.
 """
 from __future__ import annotations
 
@@ -116,9 +128,22 @@ class PseudoMersenneField:
         )
         self.top_shift = k - (_N - 1) * _BITS
         assert 0 < self.top_shift <= _BITS
+        # wrapped passes that bring a + K - b (the largest sum of add, sub
+        # and neg) back below 2^13 per limb: one for secp256k1's fold
+        # limbs; two for ed25519's, whose low fold limb 1536 takes limb 0
+        # to 4095 + 5·1536 after one
+        bound = [(1 << 13) - 1 + v for v in K]
+        self._lin_wraps = 0
+        while max(bound) >= 1 << 13:
+            carry = [v >> _BITS for v in bound]
+            bound = [_MASK + (carry[j - 1] if j else 0)
+                     + (fc[j] * carry[-1] if j < len(fc) else 0) for j in range(_N)]
+            self._lin_wraps += 1
 
-    def _wrap(self, x: torch.Tensor) -> torch.Tensor:
-        return _pass(x, self._Mr)
+    def _wrap(self, x: torch.Tensor, passes: int = 1) -> torch.Tensor:
+        for _ in range(passes):
+            x = _pass(x, self._Mr)
+        return x
 
     # -- arithmetic (float64 in, float64 out) -------------------------------
 
@@ -126,25 +151,24 @@ class PseudoMersenneField:
         outer = a.to(F64).unsqueeze(-1) * b.to(F64).unsqueeze(-2)
         x = outer.flatten(-2) @ self._W1  # 27 cols < 2^39
         x = _pass(_pass(x, self._Mw), self._Mw) @ self._W2  # 22 cols < 2^24
-        return self._wrap(self._wrap(x))
+        return self._wrap(x, 2)
 
     def square(self, a: torch.Tensor) -> torch.Tensor:
         return self.mul(a, a)
 
     def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        return self._wrap(a.to(F64) + b)
+        return self._wrap(a.to(F64) + b, self._lin_wraps)
 
     def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        return self._wrap(a.to(F64) + self._K - b)
+        return self._wrap(a.to(F64) + self._K - b, self._lin_wraps)
 
     def neg(self, a: torch.Tensor) -> torch.Tensor:
-        return self._wrap(self._K - a)
+        return self._wrap(self._K - a, self._lin_wraps)
 
     def mul_small(self, a: torch.Tensor, s) -> torch.Tensor:
         """a·s for small factors 0 ≤ s < 32 (python int, or a tensor of
         per-row factors that broadcasts against ``a``)."""
-        x = self._wrap(a.to(F64) * s)
-        return self._wrap(x)
+        return self._wrap(a.to(F64) * s, 2)
 
     # -- canonical form -----------------------------------------------------
 
@@ -224,8 +248,32 @@ class PseudoMersenneField:
 
 
 @functools.lru_cache(maxsize=None)
+def ed25519_field(device=None) -> PseudoMersenneField:
+    return PseudoMersenneField(k=255, c=19, device=device)
+
+
+@functools.lru_cache(maxsize=None)
 def secp256k1_field(device=None) -> PseudoMersenneField:
     return PseudoMersenneField(k=256, c=(1 << 32) + 977, device=device)
+
+
+class Ed25519Sqrt:
+    """Square roots in F_p for p ≡ 5 (mod 8): candidate x^((p+3)/8),
+    corrected by sqrt(-1) when needed. Returns (root, exists_mask)."""
+
+    def __init__(self, device=None):
+        self.F = ed25519_field(device)
+        p = self.F.p
+        self.sqrt_m1 = pow(2, (p - 1) // 4, p)
+
+    def sqrt(self, x: torch.Tensor):
+        F = self.F
+        cand = F.pow_const(x, (F.p + 3) // 8)
+        need_fix = ~F.eq(F.square(cand), x)
+        fixed = F.mul(cand, F.const(self.sqrt_m1, x.shape[:-1]))
+        root = torch.where(need_fix[..., None], fixed, cand)
+        ok = F.eq(F.square(root), x)
+        return root, ok
 
 
 class Secp256k1Sqrt:

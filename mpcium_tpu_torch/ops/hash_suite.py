@@ -1,6 +1,8 @@
-"""Batched SHA-256 on the device (FIPS 180-4) and the OT hot-path hashes.
+"""Batched SHA-256 and SHA-512 on the device (FIPS 180-4) and the OT
+hot-path hashes.
 
-The SHA-256 half of ``mpcium_tpu/ops/hash_suite.py`` plus its OT half:
+The port of ``mpcium_tpu/ops/hash_suite.py``: SHA-256, SHA-512 and the
+OT half:
 the IKNP PRG expansion, the packed bit transpose and the per-OT pad
 hash (:func:`prg_expand_core`, :func:`ot_transpose_core`,
 :func:`pad_hash_core`), byte for byte the JAX functions. The JAX
@@ -14,6 +16,14 @@ masked with ``& 0xFFFFFFFF`` after every add; right rotations take one
 shift of the word doubled into the high half (``x | x << 32``). The
 64 rounds are a Python loop over (B,) lanes — the state is eight
 tensors, the schedule plus round constants one (B, 64) tensor.
+
+SHA-512 holds one 64-bit word per int64 lane (the JAX package splits it
+into (hi, lo) uint32 halves only because the TPU has no 64-bit lanes).
+Three things keep int64 exact for unsigned words: adds wrap mod 2^64
+in two's complement, which is the unsigned sum's bit pattern; ``>>`` is
+arithmetic, so every logical shift masks off the sign-extended high
+bits; and constants ≥ 2^63 enter as their negative two's-complement
+values.
 """
 from __future__ import annotations
 
@@ -44,11 +54,25 @@ def _icbrt(n: int) -> int:
         x = y
 
 
-_P64 = _primes(64)
+_P80 = _primes(80)
 # frac(cbrt(p)) · 2^32 and frac(sqrt(p)) · 2^32
-_K256 = [_icbrt(p << 96) & _M32 for p in _P64]
-_H256 = [math.isqrt(p << 64) & _M32 for p in _P64[:8]]
+_K256 = [_icbrt(p << 96) & _M32 for p in _P80[:64]]
+_H256 = [math.isqrt(p << 64) & _M32 for p in _P80[:8]]
 assert _K256[0] == 0x428A2F98 and _H256[0] == 0x6A09E667
+
+
+def _signed64(v: int) -> int:
+    """Unsigned 64-bit value → the int64 with the same bits."""
+    return v - (1 << 64) if v >> 63 else v
+
+
+_M64 = (1 << 64) - 1
+# frac(cbrt(p)) · 2^64 and frac(sqrt(p)) · 2^64, as int64 bit patterns
+_K512_INT = [_icbrt(p << 192) & _M64 for p in _P80]
+_H512_INT = [math.isqrt(p << 128) & _M64 for p in _P80[:8]]
+assert _K512_INT[0] == 0x428A2F98D728AE22 and _H512_INT[0] == 0x6A09E667F3BCC908
+_K512 = [_signed64(k) for k in _K512_INT]
+_H512 = [_signed64(h) for h in _H512_INT]
 
 
 def _rotr_sum(x: torch.Tensor, a: int, b: int, c: int) -> torch.Tensor:
@@ -95,9 +119,11 @@ def words32_to_bytes(w: torch.Tensor) -> torch.Tensor:
     return out.reshape(w.shape[:-1] + (w.shape[-1] * 4,))
 
 
-def _md_pad(data: torch.Tensor, msg_len: int) -> torch.Tensor:
-    """0x80, zeros, big-endian 64-bit bit length to a 64-byte multiple."""
-    pad_total = (-(msg_len + 9)) % 64 + 9
+def _md_pad(data: torch.Tensor, msg_len: int, block: int, len_bytes: int) -> torch.Tensor:
+    """Merkle–Damgård strengthening: 0x80, zeros, and the big-endian bit
+    length in the trailing ``len_bytes`` (its bytes above the low eight
+    stay zero), to a ``block``-byte multiple — shared by both widths."""
+    pad_total = (-(msg_len + 1 + len_bytes)) % block + 1 + len_bytes
     tail = np.zeros(pad_total, np.uint8)
     tail[0] = 0x80
     tail[-8:] = np.frombuffer((msg_len * 8).to_bytes(8, "big"), np.uint8)
@@ -107,7 +133,7 @@ def _md_pad(data: torch.Tensor, msg_len: int) -> torch.Tensor:
 
 def sha256_core(data: torch.Tensor, msg_len: int) -> torch.Tensor:
     """(..., msg_len) uint8 → (..., 32) uint8 digests."""
-    words = bytes_to_words32(_md_pad(data, msg_len))
+    words = bytes_to_words32(_md_pad(data, msg_len, 64, 8))
     state = [
         torch.full(data.shape[:-1], h, dtype=torch.int64, device=data.device)
         for h in _H256
@@ -120,6 +146,78 @@ def sha256_core(data: torch.Tensor, msg_len: int) -> torch.Tensor:
 def sha256(data: torch.Tensor) -> torch.Tensor:
     """Batched SHA-256 over the last axis: (..., L) uint8 → (..., 32)."""
     return sha256_core(data, data.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# SHA-512: one 64-bit word per int64 lane
+# ---------------------------------------------------------------------------
+
+
+def _shr64(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Logical right shift of a 64-bit word held in int64."""
+    return (x >> n) & ((1 << (64 - n)) - 1)
+
+
+def _rotr64(x: torch.Tensor, n: int) -> torch.Tensor:
+    return _shr64(x, n) | (x << (64 - n))
+
+
+def sha512_compress(state: List[torch.Tensor], block: torch.Tensor) -> List[torch.Tensor]:
+    """state: eight (...,) int64 words; block (..., 16) int64 words → new
+    state (every add wraps mod 2^64)."""
+    w = list(block.unbind(-1))
+    for t in range(16, 80):
+        x, y = w[t - 15], w[t - 2]
+        s0 = _rotr64(x, 1) ^ _rotr64(x, 8) ^ _shr64(x, 7)
+        s1 = _rotr64(y, 19) ^ _rotr64(y, 61) ^ _shr64(y, 6)
+        w.append(w[t - 16] + s0 + w[t - 7] + s1)
+    a, b, c, d, e, f, g, h = state
+    for t in range(80):
+        S1 = _rotr64(e, 14) ^ _rotr64(e, 18) ^ _rotr64(e, 41)
+        t1 = h + S1 + (g ^ (e & (f ^ g))) + (w[t] + _K512[t])
+        S0 = _rotr64(a, 28) ^ _rotr64(a, 34) ^ _rotr64(a, 39)
+        t2 = S0 + ((a & b) | (c & (a | b)))
+        h, g, f = g, f, e
+        e = d + t1
+        d, c, b = c, b, a
+        a = t1 + t2
+    return [x + y for x, y in zip(state, (a, b, c, d, e, f, g, h))]
+
+
+def bytes_to_words64(b: torch.Tensor) -> torch.Tensor:
+    """(..., 8k) uint8 big-endian → (..., k) int64 words (two's complement)."""
+    w32 = bytes_to_words32(b)
+    return (w32[..., 0::2] << 32) | w32[..., 1::2]
+
+
+def words64_to_bytes(w: torch.Tensor) -> torch.Tensor:
+    sh = torch.arange(56, -1, -8, dtype=torch.int64, device=w.device)
+    out = ((w.unsqueeze(-1) >> sh) & 0xFF).to(torch.uint8)
+    return out.reshape(w.shape[:-1] + (w.shape[-1] * 8,))
+
+
+def sha512_core(data: torch.Tensor, msg_len: int) -> torch.Tensor:
+    """(..., msg_len) uint8 → (..., 64) uint8 digests. 128-byte blocks;
+    the 16-byte length field's high quadword is zero."""
+    words = bytes_to_words64(_md_pad(data, msg_len, 128, 16))
+    state = [
+        torch.full(data.shape[:-1], h, dtype=torch.int64, device=data.device)
+        for h in _H512
+    ]
+    for i in range(words.shape[-1] // 16):
+        state = sha512_compress(state, words[..., 16 * i: 16 * (i + 1)])
+    return words64_to_bytes(torch.stack(state, dim=-1))
+
+
+def sha512(data: torch.Tensor) -> torch.Tensor:
+    """Batched SHA-512 over the last axis: (..., L) uint8 → (..., 64)."""
+    return sha512_core(data, data.shape[-1])
+
+
+def sha512_bytes(data: bytes, device) -> bytes:
+    """Single-message SHA-512 on ``device`` → 64 digest bytes (the
+    per-session protocol path's entry; batch engines call :func:`sha512`)."""
+    return bytes(sha512(as_bytes(data, device)).cpu().numpy())
 
 
 # ---------------------------------------------------------------------------

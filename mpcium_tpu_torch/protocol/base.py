@@ -1,10 +1,43 @@
-"""Protocol records the signing slice needs: the durable keygen share and
-the Shamir x-coordinate map (the port's copies of the JAX package's
-``protocol/base.py`` definitions, same JSON form)."""
+"""Protocol plumbing: the durable keygen share, the Shamir x-coordinate
+map, round messages and the party base class (the port's copies of the
+JAX package's ``protocol/base.py`` definitions, same JSON form).
+
+A party consumes and produces :class:`RoundMsg` values; routing lives in
+higher layers, so the protocol runs transport-free and deterministic
+in-process (``protocol/runner.py``). Payloads are JSON-safe (ints as
+decimal strings, bytes as hex). The snapshot codec of crash-recoverable
+sessions belongs to the serving slice and is not ported yet:
+:meth:`PartyBase.snapshot` and :meth:`PartyBase.restore` raise.
+"""
 from __future__ import annotations
 
+import secrets
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
+
+
+class ProtocolError(Exception):
+    """Protocol violation attributable to a peer (culprit recorded)."""
+
+    def __init__(self, message: str, culprit: Optional[str] = None):
+        super().__init__(message + (f" (culprit: {culprit})" if culprit else ""))
+        self.culprit = culprit
+
+
+@dataclass(frozen=True)
+class RoundMsg:
+    """One protocol message; ``to`` is None for broadcast, else the
+    recipient party ID."""
+
+    session_id: str
+    round: str
+    from_id: str
+    payload: Dict[str, Any]
+    to: Optional[str] = None
+
+    @property
+    def is_broadcast(self) -> bool:
+        return self.to is None
 
 
 def party_xs(party_ids: Sequence[str]) -> Dict[str, int]:
@@ -53,3 +86,79 @@ class KeygenShare:
             epoch=int(d.get("epoch", 0)),
             aux=dict(d.get("aux", {})),
         )
+
+
+class PartyBase:
+    """Common state for a protocol party.
+
+    Subclasses implement ``start() -> [RoundMsg]`` and
+    ``receive(RoundMsg) -> [RoundMsg]``; when ``done`` flips True the
+    ``result`` is available. Errors raise :class:`ProtocolError`.
+    """
+
+    def __init__(self, session_id: str, self_id: str, party_ids: Sequence[str],
+                 rng=secrets):
+        assert self_id in party_ids
+        self.session_id = session_id
+        self.self_id = self_id
+        self.party_ids = sorted(party_ids)
+        self.xs = party_xs(self.party_ids)
+        self.self_x = self.xs[self_id]
+        self.rng = rng
+        self.done = False
+        self.result: Any = None
+        # per-round inbox: round name -> {from_id: payload}
+        self._inbox: Dict[str, Dict[str, Dict[str, Any]]] = {}
+
+    # -- inbox machinery ----------------------------------------------------
+
+    def _store(self, msg: RoundMsg) -> None:
+        if msg.session_id != self.session_id:
+            raise ProtocolError(
+                f"message for session {msg.session_id!r} delivered to "
+                f"{self.session_id!r}"
+            )
+        if msg.from_id not in self.xs:
+            raise ProtocolError("message from non-participant", msg.from_id)
+        if msg.to is not None and msg.to != self.self_id:
+            raise ProtocolError(f"unicast for {msg.to!r} delivered to {self.self_id!r}")
+        box = self._inbox.setdefault(msg.round, {})
+        if msg.from_id in box:
+            # duplicate delivery is legal (at-least-once transport) only
+            # when identical; anything else is equivocation
+            if box[msg.from_id] != msg.payload:
+                raise ProtocolError(f"equivocation in round {msg.round}", msg.from_id)
+            return
+        box[msg.from_id] = msg.payload
+
+    def _round_full(self, round_name: str, expect_from: Sequence[str]) -> bool:
+        box = self._inbox.get(round_name, {})
+        return all(pid in box for pid in expect_from)
+
+    def _round_payloads(self, round_name: str) -> Dict[str, Dict[str, Any]]:
+        return self._inbox.get(round_name, {})
+
+    # -- crash-recovery snapshots (serving slice) ----------------------------
+
+    def snapshot(self) -> Dict[str, Any]:
+        raise NotImplementedError(
+            "party snapshots (the snapshot codec of store/session_wal.py) "
+            "come with the serving slice of the port"
+        )
+
+    def restore(self, snap: Dict[str, Any]) -> None:
+        raise NotImplementedError(
+            "party restore (the snapshot codec of store/session_wal.py) "
+            "comes with the serving slice of the port"
+        )
+
+    # -- helpers ------------------------------------------------------------
+
+    def others(self) -> List[str]:
+        return [p for p in self.party_ids if p != self.self_id]
+
+    def broadcast(self, round_name: str, payload: Dict[str, Any]) -> RoundMsg:
+        return RoundMsg(self.session_id, round_name, self.self_id, payload)
+
+    def unicast(self, to: str, round_name: str, payload: Dict[str, Any]) -> RoundMsg:
+        return RoundMsg(self.session_id, round_name, self.self_id, payload, to=to)
