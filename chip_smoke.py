@@ -699,9 +699,19 @@ def sha512_vs_hashlib(B: int, seed: int, dev: str = "cuda") -> None:
         for i in range(rows):
             if got[i].tobytes() != hashlib.sha512(data[i].tobytes()).digest():
                 raise AssertionError(f"sha512: row {i} of length {n} != hashlib")
+    # the host path of a ragged batch on the same challenge rows: hashlib
+    # per row, then the digests copied to the card
+    t0 = time.perf_counter()
+    host = np.stack([np.frombuffer(hashlib.sha512(r.tobytes()).digest(), np.uint8)
+                     for r in data])
+    torch.as_tensor(host, device=dev)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
     emit({"phase": "sha512_vs_hashlib", "lengths": [n for _, n in cases],
           "rows": [r for r, _ in cases], "equal": True,
-          "challenge_batch_ms": t_ms, "note": "host clock, synchronized by the copy out"})
+          "challenge_batch_ms": t_ms, "hashlib_batch_ms": host_ms,
+          "note": "host clock, synchronized by the copy out"})
 
 
 def ed25519_edges(dev: str = "cuda") -> None:

@@ -290,8 +290,3 @@ def _pack_bytes_le(limbs: torch.Tensor, sign=None) -> torch.Tensor:
         return out
     top = out[..., 31:] | (sign.to(torch.uint8)[..., None] << 7)
     return torch.cat([out[..., :31], top], -1)
-
-
-def pack_scalar_bytes_le(limbs: torch.Tensor) -> torch.Tensor:
-    """Canonical scalar limbs → (..., 32) uint8 little-endian."""
-    return _pack_bytes_le(limbs)

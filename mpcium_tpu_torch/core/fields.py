@@ -257,25 +257,6 @@ def secp256k1_field(device=None) -> PseudoMersenneField:
     return PseudoMersenneField(k=256, c=(1 << 32) + 977, device=device)
 
 
-class Ed25519Sqrt:
-    """Square roots in F_p for p ≡ 5 (mod 8): candidate x^((p+3)/8),
-    corrected by sqrt(-1) when needed. Returns (root, exists_mask)."""
-
-    def __init__(self, device=None):
-        self.F = ed25519_field(device)
-        p = self.F.p
-        self.sqrt_m1 = pow(2, (p - 1) // 4, p)
-
-    def sqrt(self, x: torch.Tensor):
-        F = self.F
-        cand = F.pow_const(x, (F.p + 3) // 8)
-        need_fix = ~F.eq(F.square(cand), x)
-        fixed = F.mul(cand, F.const(self.sqrt_m1, x.shape[:-1]))
-        root = torch.where(need_fix[..., None], fixed, cand)
-        ok = F.eq(F.square(root), x)
-        return root, ok
-
-
 class Secp256k1Sqrt:
     """Square roots in F_p for p ≡ 3 (mod 4): x^((p+1)/4)."""
 

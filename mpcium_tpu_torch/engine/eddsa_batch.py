@@ -13,8 +13,8 @@ Wire format for batched rounds is byte tensors: a party's round-1
 message is the (B, 32) tensor of compressed nonce points, and so on.
 Commitments hash through the device SHA-256 and challenges through the
 device SHA-512 (``ops/hash_suite``), so the round tensors stay on the
-device; ``MPCIUM_EDDSA_DEVICE_HASH=0`` and ragged message batches hash
-with ``hashlib`` on the host instead, with the same bytes.
+device; only a ragged message batch hashes its challenges with
+``hashlib`` on the host, with the same bytes.
 
 The JAX package's jitted kernels are plain functions here, and its
 donated round steps (``round_step_*``) return a new state dict; the
@@ -24,7 +24,6 @@ is none).
 from __future__ import annotations
 
 import hashlib
-import os
 import secrets
 from typing import Optional, Sequence, Tuple
 
@@ -186,13 +185,6 @@ def round_step_partial(st: dict, c64: torch.Tensor, lamx: torch.Tensor) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def device_hash_enabled() -> bool:
-    """MPCIUM_EDDSA_DEVICE_HASH gates the device hash path (default on):
-    commitments and challenges hash on the device where the round tensors
-    live. 0 hashes with hashlib on the host (same bytes)."""
-    return os.environ.get("MPCIUM_EDDSA_DEVICE_HASH", "1") != "0"
-
-
 def challenge_device(R_comp, A_comp, M, device=None) -> torch.Tensor:
     """SHA-512(R ‖ A ‖ M) over (B, 32)/(B, 32)/(B, L) uint8 rows (tensors
     or host arrays) → (B, 64) digests on ``device`` (default: R_comp's
@@ -212,10 +204,10 @@ def challenge_hashes(
     """Per-session SHA-512(R ‖ A ‖ M) → (B, 64) uint8 on the host.
 
     Equal-length messages hash on ``device`` in one batched call
-    (:func:`challenge_device`); MPCIUM_EDDSA_DEVICE_HASH=0 and ragged
-    batches hash each row with hashlib. All paths give the same bytes."""
+    (:func:`challenge_device`); a ragged batch hashes each row with
+    hashlib. Both paths give the same bytes."""
     lens = {len(m) for m in messages}
-    if len(lens) == 1 and device_hash_enabled():
+    if len(lens) == 1:
         M = np.frombuffer(b"".join(messages), np.uint8).reshape(len(messages), lens.pop())
         return challenge_device(R_comp, A_comp, M, device).cpu().numpy()
     R, A = _host(R_comp), _host(A_comp)
@@ -225,15 +217,6 @@ def challenge_hashes(
             hashlib.sha512(R[i].tobytes() + A[i].tobytes() + m).digest(), np.uint8
         )
     return out
-
-
-def _host_commits(blinds: np.ndarray, R: np.ndarray) -> np.ndarray:
-    """SHA-256(prefix ‖ blind ‖ R) per row of one party's (B, ·) blocks."""
-    return np.stack([
-        np.frombuffer(hashlib.sha256(COMMIT_PREFIX + b.tobytes() + r.tobytes()).digest(),
-                      np.uint8)
-        for b, r in zip(blinds, R)
-    ])
 
 
 def fresh_nonce_bytes(batch: int, rng=secrets) -> np.ndarray:
@@ -324,10 +307,11 @@ class BatchedCoSigners:
         ``cohorts=`` overrides MPCIUM_PIPELINE_COHORTS). All nonce and
         blind bytes are drawn for the full batch, in the K=1 order,
         before the split, so signatures are bit-identical for every K.
-        The host-hash paths (MPCIUM_EDDSA_DEVICE_HASH=0, ragged messages)
-        run serially. ``phase_times``: optional dict that receives wall
-        seconds per phase (each cohort's own rounds, cohorts added; the
-        device is synchronized at each mark)."""
+        Equal-length messages hash their challenges on the device; a
+        ragged batch hashes them on the host. ``phase_times``: optional
+        dict that receives wall seconds per phase (each cohort's own
+        rounds, cohorts added; the device is synchronized at each
+        mark)."""
         assert len(messages) == self.B
         q, B, dev = self.q, self.B, self.device
 
@@ -338,15 +322,13 @@ class BatchedCoSigners:
             for _ in range(q)
         ])
 
-        use_dev_hash = device_hash_enabled()
-        lens = {len(m) for m in messages}
-        if not use_dev_hash or len(lens) != 1:
-            return self._sign_fallback(messages, r64, blinds, use_dev_hash, phase_times)
-
         plan = pl.CohortPlan.for_batch(B, cohorts)
-        Mrows = hs.as_bytes(
-            np.frombuffer(b"".join(messages), np.uint8).reshape(B, lens.pop()), dev
-        )
+        lens = {len(m) for m in messages}
+        Mrows = None
+        if len(lens) == 1:
+            Mrows = hs.as_bytes(
+                np.frombuffer(b"".join(messages), np.uint8).reshape(B, lens.pop()), dev
+            )
         pref = hs.as_bytes(COMMIT_PREFIX, dev)
 
         def job(sl: slice):
@@ -363,7 +345,11 @@ class BatchedCoSigners:
                     raise RuntimeError("commitment fraud detected")
                 pt.restart()
                 A_c = self._A_dev[sl]
-                c64 = challenge_device(st["R_sum"], A_c, Mrows[sl])
+                if Mrows is not None:
+                    c64 = challenge_device(st["R_sum"], A_c, Mrows[sl])
+                else:
+                    c64 = torch.as_tensor(challenge_hashes(
+                        st["R_sum"], self.A_comp[sl], messages[sl]), device=dev)
                 st = round_step_partial(st, c64, self._lamx_dev[:, sl])
                 pt.mark("r3_challenge_partials_combine")
                 # local verification before publishing
@@ -376,48 +362,6 @@ class BatchedCoSigners:
 
         parts = pl.run_counter_phase([job(sl) for sl in plan.slices()])
         return (pl.merge_rows([p[0] for p in parts]), pl.merge_rows([p[1] for p in parts]))
-
-    def _sign_fallback(
-        self, messages: Sequence[bytes], r64: np.ndarray, blinds: np.ndarray,
-        use_dev_hash: bool, phase_times: Optional[dict] = None,
-    ) -> Tuple[np.ndarray, np.ndarray]:
-        """The serial (K=1) path for MPCIUM_EDDSA_DEVICE_HASH=0 and ragged
-        message batches: the same rounds, commitments hashed on the device
-        unless the device hash is off, challenges on the host whenever
-        either holds."""
-        q, B, dev = self.q, self.B, self.device
-        pt = PhaseTimer(dev, phase_times)
-        r_limbs, R_comp = nonce_commitments(torch.as_tensor(r64, device=dev))
-        if use_dev_hash:
-            pref = hs.as_bytes(COMMIT_PREFIX, dev)
-            commit_msg = _commit_msg(pref, torch.as_tensor(blinds, device=dev), R_comp)
-            commits = hs.sha256(commit_msg)
-        else:
-            R_host = R_comp.cpu().numpy()
-            commits = [_host_commits(blinds[p], R_host[p]) for p in range(q)]
-        pt.mark("r1_nonce_commit")
-
-        if use_dev_hash:
-            if not bool(torch.all(hs.sha256(commit_msg) == commits)):
-                raise RuntimeError("commitment fraud detected")
-            R_sum, ok_R = aggregate_nonce(R_comp)
-        else:
-            for p in range(q):
-                if not (_host_commits(blinds[p], R_host[p]) == commits[p]).all():
-                    raise RuntimeError("commitment fraud detected")
-            R_sum, ok_R = aggregate_nonce(torch.as_tensor(R_host, device=dev))
-        pt.mark("r2_decommit_aggregate")
-
-        c64 = torch.as_tensor(
-            challenge_hashes(R_sum.cpu().numpy(), self.A_comp, messages), device=dev
-        )
-        parts = partial_signature(r_limbs, c64.expand((q,) + c64.shape), self._lamx_dev)
-        sigs, _ = combine_signatures(parts, R_sum)
-        pt.mark("r3_challenge_partials_combine")
-
-        ok = verify_signatures(sigs, self._A_dev, c64)
-        pt.mark("verify")
-        return sigs.cpu().numpy(), (ok & ok_R).cpu().numpy()
 
 
 def dealer_keygen_batch(

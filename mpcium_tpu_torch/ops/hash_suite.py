@@ -214,12 +214,6 @@ def sha512(data: torch.Tensor) -> torch.Tensor:
     return sha512_core(data, data.shape[-1])
 
 
-def sha512_bytes(data: bytes, device) -> bytes:
-    """Single-message SHA-512 on ``device`` → 64 digest bytes (the
-    per-session protocol path's entry; batch engines call :func:`sha512`)."""
-    return bytes(sha512(as_bytes(data, device)).cpu().numpy())
-
-
 # ---------------------------------------------------------------------------
 # OT hot path: PRG expansion, packed bit transpose, pad hash
 # ---------------------------------------------------------------------------

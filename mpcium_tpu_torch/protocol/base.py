@@ -5,9 +5,7 @@ JAX package's ``protocol/base.py`` definitions, same JSON form).
 A party consumes and produces :class:`RoundMsg` values; routing lives in
 higher layers, so the protocol runs transport-free and deterministic
 in-process (``protocol/runner.py``). Payloads are JSON-safe (ints as
-decimal strings, bytes as hex). The snapshot codec of crash-recoverable
-sessions belongs to the serving slice and is not ported yet:
-:meth:`PartyBase.snapshot` and :meth:`PartyBase.restore` raise.
+decimal strings, bytes as hex).
 """
 from __future__ import annotations
 
@@ -138,20 +136,6 @@ class PartyBase:
     def _round_payloads(self, round_name: str) -> Dict[str, Dict[str, Any]]:
         return self._inbox.get(round_name, {})
 
-    # -- crash-recovery snapshots (serving slice) ----------------------------
-
-    def snapshot(self) -> Dict[str, Any]:
-        raise NotImplementedError(
-            "party snapshots (the snapshot codec of store/session_wal.py) "
-            "come with the serving slice of the port"
-        )
-
-    def restore(self, snap: Dict[str, Any]) -> None:
-        raise NotImplementedError(
-            "party restore (the snapshot codec of store/session_wal.py) "
-            "comes with the serving slice of the port"
-        )
-
     # -- helpers ------------------------------------------------------------
 
     def others(self) -> List[str]:
@@ -159,6 +143,3 @@ class PartyBase:
 
     def broadcast(self, round_name: str, payload: Dict[str, Any]) -> RoundMsg:
         return RoundMsg(self.session_id, round_name, self.self_id, payload)
-
-    def unicast(self, to: str, round_name: str, payload: Dict[str, Any]) -> RoundMsg:
-        return RoundMsg(self.session_id, round_name, self.self_id, payload, to=to)

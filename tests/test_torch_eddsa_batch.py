@@ -163,7 +163,7 @@ def test_fused_step_equals_the_round_step_chain_and_jax():
     assert _np(st["ok_R"]).tolist() == [True, True]
 
 
-def test_challenge_hashes_paths_agree(monkeypatch):
+def test_challenge_hashes_paths_agree():
     sigs, pubs, msgs = _signed_batch(2)
     want = _c64(sigs, pubs, msgs)
     R = sigs[:, :32]
@@ -176,9 +176,6 @@ def test_challenge_hashes_paths_agree(monkeypatch):
     ragged = [msgs[0], b"short"]
     assert eb.challenge_hashes(R, pubs, ragged)[1].tobytes() == hashlib.sha512(
         R[1].tobytes() + pubs[1].tobytes() + b"short").digest()
-    monkeypatch.setenv("MPCIUM_EDDSA_DEVICE_HASH", "0")
-    assert not eb.device_hash_enabled()
-    assert np.array_equal(eb.challenge_hashes(R, pubs, msgs), want)
 
 
 # ---------------------------------------------------------------------------
@@ -258,17 +255,19 @@ def test_fused_step_matches_the_jax_golden():
     assert _np(ok_R).tolist() == want["ok_R"]
 
 
-def test_host_hash_paths_give_the_device_bytes(monkeypatch):
-    want = _golden(ENGINE_GOLDEN)["cohorts"]["1"]
+@pytest.mark.parametrize("cohorts,lengths", [
+    (1, (0, 1, 200, 32)),
+    (2, (0, 1, 200, 32)),
+    (2, (0, 1, 32, 32)),  # the second cohort's messages share one length
+])
+def test_ragged_messages_sign_the_same_bytes(cohorts, lengths):
+    """A ragged batch hashes its challenges on the host, cohort by cohort;
+    the bytes are those of the python-int signer on the same draws."""
     msgs = eg.messages(eg.B, eg.ENGINE["messages"])
-    monkeypatch.setenv("MPCIUM_EDDSA_DEVICE_HASH", "0")
-    shares, signer = _signer()
-    sigs, ok = signer.sign(msgs, cohorts=2)
-    assert [bytes(r).hex() for r in sigs] == want["signatures"] and ok.all()
-    monkeypatch.setenv("MPCIUM_EDDSA_DEVICE_HASH", "1")
-    ragged = [b"", b"x", b"a" * 200, msgs[3]]
+    ragged = [m[:n] if n <= len(m) else bytes([n % 251]) * n
+              for m, n in zip(msgs, lengths)]
     shares, signer = _signer(77)
-    sigs, ok = signer.sign(ragged)
+    sigs, ok = signer.sign(ragged, cohorts=cohorts)
     assert ok.all()
     assert np.array_equal(sigs, _host_sign(shares, ragged, 77))
 

@@ -157,14 +157,10 @@ def test_constructor_checks_each_wallet():
         _party("bs-3", "n0", ["n0", "n1"], shares[0], msgs[:1])
 
 
-def test_snapshots_wait_for_the_serving_slice_and_device_none_needs_a_gpu():
-    ids, parties = _two_parties()
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        parties["n0"].snapshot()
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        parties["n0"].restore({})
+def test_device_none_needs_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
+    ids = ["n0", "n1"]
     shares = eb.dealer_keygen_batch(2, ids, threshold=1, rng=SeededStream(23))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BatchedEDDSASigningParty("bs-4", "n0", ids, shares[0], [b"m"] * 2)
