@@ -89,16 +89,60 @@ group, the EdDSA engine and the batched party; plain torch, no K0):
     with span recording on: seconds per party round; both results all
     ok, equal, and verified on the host.
 
+The wallet lifecycle (batched DKG and resharing, both curves, and the
+GG18 ECDSA signing party; the party's Paillier MtA launches K0, DKG and
+resharing do not):
+
+15. ecdsa_party_golden — the JAX party's committed golden
+    (``gg18_party_b4.json``: two parties of a 2-of-3 universe sign B=4
+    digests on the 1024-bit fixture with shrunk domains) replayed at
+    cohorts 1 and 2: every wire message (long fields by digest), each
+    party's (r, s, recovery, ok) and the material digests, byte for byte.
+16. dkg_golden — the JAX engines' ``dkg_b4.json`` (BatchedDKG on both
+    curves, then BatchedReshare to 3-of-5) and the JAX parties'
+    ``dkg_party_b4.json`` (DKG and reshare parties on both curves, the
+    secp256k1 ones with Paillier material and proofs), at cohorts 1 and
+    2: wire, shares, public keys, VSS commitments and aux, byte for byte.
+17. dkg_engine — BASELINE config 4: ``BatchedDKG`` of DKG_B secp256k1
+    wallets (2-of-3), a first and a measured warm run (phases, wallets/s);
+    every VSS check passes, every wallet's members agree on the public
+    key, 64 sampled wallets Lagrange-recombine on the host to it, and
+    K0's counters, zeroed just before the warm run, read 0.
+18. reshare_engine — BASELINE config 5: ``BatchedReshare`` of the first
+    RESHARE_B DKG wallets from the quorum node0, node1 to a 3-of-5
+    committee, first and warm run; public keys unchanged, epoch 1, 64
+    sampled wallets recombine from three new shares; K0 reads 0.
+19. wallet_lifecycle — the distributed parties through ``run_protocol``
+    with span recording on, on the 2048-bit fixture with full
+    ``Domains()``: three ``BatchedDKGParty`` create LIFECYCLE_B
+    secp256k1 wallets; node0's and node1's material digests agree;
+    node0 + node1 sign LIFECYCLE_B digests with
+    ``BatchedECDSASigningParty`` (K0's counters zeroed just before: both
+    entries at both widths, every powmod mode of the path, no plain
+    call); ``BatchedReshareParty`` rotates to node0–node2 (t=1, epoch 1,
+    keys unchanged); node1 + node2 sign LIFECYCLE_B digests with the new
+    shares. Every ok true, the parties agree, every signature verified
+    on the host; seconds per runner round and per party phase.
+20. eddsa_dkg — three ed25519 ``BatchedDKGParty`` create LIFECYCLE_B
+    wallets, and ``BatchedEDDSASigningParty`` node0 + node1 sign with
+    them: every ok true, every signature verified on the host.
+
+Every host verification runs the port's python-int verifiers over all
+signatures, spread over a pool of worker processes (one per host core).
+The kernels line's launch counts are phase 19's first party sign.
+
 Then the script's wall time, a ``{"kernels": [...]}`` line, the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero.
 
-    python3 chip_smoke.py [--batch 1024] [--eddsa-batch 4096] [--seed 1]
+    python3 chip_smoke.py [--batch 1024] [--eddsa-batch 4096] [--dkg-batch 4096]
+        [--lifecycle-batch 1024] [--seed 1]
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import random
 import statistics
 import subprocess
@@ -114,6 +158,9 @@ OT_LEG_GOLDEN = GOLDENS / "ot_leg_b4.json"
 COHORTS = 2
 EDDSA_B = 4096  # BASELINE config 2: a 2-of-3 Ed25519 sign of 4096 wallets
 EDDSA_PARTY_B = 1024
+DKG_B = 4096  # BASELINE config 4: a 2-of-3 secp256k1 DKG of 4096 wallets
+RESHARE_B = 1024  # BASELINE config 5: 2-of-3 -> 3-of-5 rotation of 1024 wallets
+LIFECYCLE_B = 1024  # DKG -> sign -> reshare -> sign as distributed parties
 REPS, GROUPS = 100, 20  # calls per CUDA event pair; pairs per median
 POWMOD_TIMINGS = 7  # event pairs (one launch each) per powmod median
 # (mode, n) of every powmod the signing path launches, and the exponent
@@ -133,6 +180,58 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# host verification: the port's python-int verifiers, every signature,
+# spread over a pool of worker processes on the host's cores
+# ---------------------------------------------------------------------------
+
+_POOL = None
+
+
+def host_pool():
+    """The verifier pool, started once (spawned: the workers never touch
+    the card) and shut down at the end of main()."""
+    global _POOL
+    if _POOL is None:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        _POOL = ProcessPoolExecutor(max_workers=os.cpu_count() or 1,
+                                    mp_context=multiprocessing.get_context("spawn"))
+    return _POOL
+
+
+def _ecdsa_rows(rows) -> int:
+    from mpcium_tpu_torch.core import hostmath as hm
+
+    return sum(hm.ecdsa_verify(hm.secp_decompress(pub), int.from_bytes(d, "big"),
+                               int.from_bytes(r, "big"), int.from_bytes(s, "big"))
+               for pub, d, r, s in rows)
+
+
+def _ed25519_rows(rows) -> int:
+    from mpcium_tpu_torch.core import hostmath as hm
+
+    return sum(hm.ed25519_verify(pub, msg, sig) for pub, msg, sig in rows)
+
+
+def _verified(fn, rows) -> int:
+    n = max(1, -(-len(rows) // (4 * (os.cpu_count() or 1))))
+    return sum(host_pool().map(fn, [rows[i:i + n] for i in range(0, len(rows), n)]))
+
+
+def verify_ecdsa(pubs, digests, r, s) -> int:
+    """How many (r, s) verify: ``pubs`` compressed keys, ``digests`` 32-byte
+    rows, ``r``/``s`` (B, 32) big-endian rows."""
+    return _verified(_ecdsa_rows, [(bytes(p), bytes(d), bytes(a), bytes(b))
+                                   for p, d, a, b in zip(pubs, digests, r, s)])
+
+
+def verify_ed25519(pubs, msgs, sigs) -> int:
+    return _verified(_ed25519_rows, [(bytes(p), bytes(m), bytes(g))
+                                     for p, m, g in zip(pubs, msgs, sigs)])
 
 
 def smi() -> str:
@@ -426,7 +525,6 @@ def run_slice(B: int, seed: int, pre, K):
     import numpy as np
     import torch
 
-    from mpcium_tpu_torch.core import hostmath as hm
     from mpcium_tpu_torch.engine import gg18_batch as gb
     from mpcium_tpu_torch.utils.rng import SeededStream
 
@@ -462,13 +560,7 @@ def run_slice(B: int, seed: int, pre, K):
     by_mode = dict(K.powmod_launches_by_mode_width)
     plain_calls = K.plain_calls
     t0 = time.perf_counter()
-    verified = 0
-    for i in range(B):
-        pub = hm.secp_decompress(shares[0][i].public_key)
-        r = int.from_bytes(out["r"][i].tobytes(), "big")
-        s = int.from_bytes(out["s"][i].tobytes(), "big")
-        d = int.from_bytes(digests[i].tobytes(), "big")
-        verified += hm.ecdsa_verify(pub, d, r, s)
+    verified = verify_ecdsa([x.public_key for x in shares[0]], digests, out["r"], out["s"])
     verify_s = time.perf_counter() - t0
     emit({
         "phase": "slice", "B": B, "cohorts": COHORTS, "seed": seed,
@@ -613,7 +705,6 @@ def run_ot_slice(B: int, seed: int, shares, K) -> None:
     import numpy as np
     import torch
 
-    from mpcium_tpu_torch.core import hostmath as hm
     from mpcium_tpu_torch.engine import gg18_batch as gb
     from mpcium_tpu_torch.protocol.ecdsa.mta_ot import resolve_chunks
     from mpcium_tpu_torch.utils.rng import SeededStream
@@ -646,12 +737,7 @@ def run_ot_slice(B: int, seed: int, shares, K) -> None:
              for (a, b), leg in signer.ot_legs.items()}
     clean = all(v is not None and not any(v) for v in blame.values())
     t0 = time.perf_counter()
-    verified = 0
-    for i in range(B):
-        pub = hm.secp_decompress(shares[0][i].public_key)
-        r = int.from_bytes(out["r"][i].tobytes(), "big")
-        s = int.from_bytes(out["s"][i].tobytes(), "big")
-        verified += hm.ecdsa_verify(pub, int.from_bytes(digests[i].tobytes(), "big"), r, s)
+    verified = verify_ecdsa([x.public_key for x in shares[0]], digests, out["r"], out["s"])
     verify_s = time.perf_counter() - t0
     timings = signer.ot_timings or {}
     emit({
@@ -761,10 +847,7 @@ def _sync(dev: str) -> None:
 
 
 def _host_verified(shares, msgs, sigs) -> int:
-    from mpcium_tpu_torch.core import hostmath as hm
-
-    return sum(hm.ed25519_verify(s.public_key, m, sig.tobytes())
-               for s, m, sig in zip(shares, msgs, sigs))
+    return verify_ed25519([s.public_key for s in shares], msgs, sigs)
 
 
 def run_eddsa_slice(B: int, seed: int, K, dev: str = "cuda"):
@@ -880,11 +963,357 @@ def run_eddsa_party(B: int, seed: int, shares, dev: str = "cuda") -> None:
 
 
 
+# ---------------------------------------------------------------------------
+# the wallet lifecycle: batched DKG, the GG18 signing party, resharing
+# ---------------------------------------------------------------------------
+
+UNIVERSE = ["node0", "node1", "node2"]
+
+
+def _k0_counts(K):
+    """K0 launches by entry, mode and width, and plain-version calls."""
+    if K is None:
+        return {"launches": 0, "mulmod_by_width": {}, "powmod_by_mode_width": {},
+                "plain_calls": 0}
+    return {
+        "launches": K.launches + sum(K.powmod_launches_by_mode_width.values()),
+        "mulmod_by_width": dict(K.launches_by_width),
+        "powmod_by_mode_width": dict(K.powmod_launches_by_mode_width),
+        "plain_calls": K.plain_calls,
+    }
+
+
+def _k0_json(c) -> dict:
+    return {"launches": c["launches"], "plain_calls": c["plain_calls"],
+            "mulmod_launches_by_width": {str(k): v for k, v in
+                                         sorted(c["mulmod_by_width"].items())},
+            "powmod_launches_by_mode_width": {f"{m}/{n}": v for (m, n), v in
+                                              sorted(c["powmod_by_mode_width"].items())}}
+
+
+def _reset(K) -> None:
+    if K is not None:
+        K.reset_counters()
+
+
+def _recombines(party_shares, wallets, t: int, order: int, mul) -> int:
+    """Wallets among ``wallets`` whose first t+1 members' shares
+    Lagrange-combine (host ints) to a secret whose public key is the
+    wallets' public key."""
+    from mpcium_tpu_torch.core import hostmath as hm
+
+    good = 0
+    for w in wallets:
+        rows = [shares[w] for shares in party_shares[: t + 1]]
+        xs = [r.self_x for r in rows]
+        secret = sum(hm.lagrange_coeff(xs, r.self_x, order) * r.share for r in rows) % order
+        good += mul(secret) == party_shares[0][w].public_key
+    return good
+
+
+def _secp_pub(secret: int) -> bytes:
+    from mpcium_tpu_torch.core import hostmath as hm
+
+    return hm.secp_compress(hm.secp_mul(secret, hm.SECP_G))
+
+
+def _ed_pub(secret: int) -> bytes:
+    from mpcium_tpu_torch.core import hostmath as hm
+
+    return hm.ed_compress(hm.ed_mul(secret, hm.ED_B))
+
+
+def ecdsa_party_golden(dev: str = "cuda") -> None:
+    """The JAX party's committed golden replayed on the card: every wire
+    message (long fields by digest), each party's (r, s, recovery, ok)
+    and the material digests, at cohorts 1 and 2."""
+    from mpcium_tpu_torch.cluster import load_test_preparams
+    from mpcium_tpu_torch.engine import gg18_batch as gb
+    from mpcium_tpu_torch.protocol.ecdsa.batch_signing import (
+        BatchedECDSASigningParty, quorum_material_digest,
+    )
+    from mpcium_tpu_torch.protocol.runner import run_protocol
+    from mpcium_tpu_torch.utils import gg18_party_golden as pg
+
+    want = json.loads((GOLDENS / "gg18_party_b4.json").read_text())["record"]
+    pre = load_test_preparams(1024)
+    diff, secs = [], {}
+    for k in pg.COHORTS:
+        t0 = time.perf_counter()
+        got = pg.party_record(gb, BatchedECDSASigningParty, run_protocol,
+                              quorum_material_digest, pre, k, device=dev)
+        secs[str(k)] = time.perf_counter() - t0
+        diff += [f"cohorts{k}/{key}" for key in _record_diff(got, want)]
+    emit({"phase": "ecdsa_party_golden", "B": pg.B, "cohorts": pg.COHORTS,
+          "wire_messages": len(want["wire"]), "matches_jax_golden": not diff,
+          "differs": diff, "s_by_cohorts": secs})
+    if diff:
+        raise AssertionError(f"the ECDSA party differs from the JAX golden in {diff}")
+
+
+def dkg_golden(dev: str = "cuda") -> None:
+    """The JAX DKG and reshare engines' and parties' committed goldens
+    replayed on the card, both curves, at cohorts 1 and 2."""
+    from mpcium_tpu_torch.cluster import load_test_preparams
+    from mpcium_tpu_torch.engine import dkg_batch as dk
+    from mpcium_tpu_torch.protocol.batch_dkg import BatchedDKGParty, BatchedReshareParty
+    from mpcium_tpu_torch.protocol.runner import run_protocol
+    from mpcium_tpu_torch.utils import dkg_golden as dg
+
+    engine = json.loads((GOLDENS / "dkg_b4.json").read_text())["record"]
+    party = json.loads((GOLDENS / "dkg_party_b4.json").read_text())["record"]
+    pre = load_test_preparams(1024)
+    t0 = time.perf_counter()
+    diff = []
+    for k in dg.COHORTS:
+        diff += [f"engine/cohorts{k}/{key}"
+                 for key in _record_diff(dg.engine_record(dk, k, device=dev), engine)]
+        got = dg.party_record(BatchedDKGParty, BatchedReshareParty, run_protocol, pre, k,
+                              device=dev)
+        diff += [f"party/cohorts{k}/{kt}/{proto}" for kt in dg.CURVES
+                 for proto in ("dkg", "reshare") if got[kt][proto] != party[kt][proto]]
+    emit({"phase": "dkg_golden", "B": dg.B, "curves": dg.CURVES, "cohorts": dg.COHORTS,
+          "matches_jax_golden": not diff, "differs": diff, "s": time.perf_counter() - t0})
+    if diff:
+        raise AssertionError(f"DKG / reshare differ from the JAX goldens in {diff}")
+
+
+def run_dkg_engine(B: int, seed: int, K, dev: str = "cuda"):
+    """BASELINE config 4: the in-process 2-of-3 secp256k1 DKG of B wallets,
+    a first and a measured warm run (K0's counters zeroed just before)."""
+    import numpy as np
+
+    from mpcium_tpu_torch.core import hostmath as hm
+    from mpcium_tpu_torch.engine import dkg_batch as dk
+    from mpcium_tpu_torch.engine.pipeline import resolve_cohorts
+    from mpcium_tpu_torch.utils.rng import SeededStream
+
+    dkg = dk.BatchedDKG(UNIVERSE, 1, "secp256k1", rng=SeededStream(seed + 40), device=dev)
+    t0 = time.perf_counter()
+    dkg.run(B, cohorts=COHORTS)
+    first_s = time.perf_counter() - t0
+    phases: dict = {}
+    _reset(K)
+    t0 = time.perf_counter()
+    shares = dkg.run(B, cohorts=COHORTS, phase_times=phases)
+    _sync(dev)
+    run_s = time.perf_counter() - t0
+    k0 = _k0_counts(K)
+    sample = sorted(np.random.default_rng(seed + 41).choice(B, min(B, 64), replace=False).tolist())
+    t0 = time.perf_counter()
+    good = _recombines(shares, sample, 1, hm.SECP_N, _secp_pub)
+    same_pub = all(len({s[w].public_key for s in shares}) == 1 for w in range(B))
+    emit({"phase": "dkg_engine", "B": B, "scheme": "2-of-3 secp256k1 Feldman DKG",
+          "cohorts": resolve_cohorts(B, COHORTS), "first_run_s": first_s, "run_s": run_s,
+          "wallets_per_s": B / run_s, "phases_s": phases,
+          "vss_ok_all": True, "public_keys_agree": same_pub,
+          "sampled_recombined": f"{good}/{len(sample)}",
+          "recombine_s": time.perf_counter() - t0, "k0": _k0_json(k0)})
+    if good != len(sample) or not same_pub:
+        raise AssertionError(f"DKG: {good}/{len(sample)} sampled wallets recombine")
+    if k0["launches"] or k0["plain_calls"]:
+        raise AssertionError(f"the DKG reached K0 or its plain versions: {k0}")
+    return shares
+
+
+def run_reshare_engine(B: int, seed: int, dkg_shares, K, dev: str = "cuda") -> None:
+    """BASELINE config 5: the first B DKG wallets rotated from the quorum
+    node0, node1 (2-of-3) to a 3-of-5 committee; first and warm run."""
+    import numpy as np
+
+    from mpcium_tpu_torch.core import hostmath as hm
+    from mpcium_tpu_torch.engine import dkg_batch as dk
+    from mpcium_tpu_torch.utils.rng import SeededStream
+
+    old = [dkg_shares[0][:B], dkg_shares[1][:B]]
+    new_committee = [f"node{i}" for i in range(5)]
+    rs = dk.BatchedReshare(["node0", "node1"], old, new_committee, 2,
+                           rng=SeededStream(seed + 42), device=dev)
+    t0 = time.perf_counter()
+    rs.run(cohorts=COHORTS)
+    first_s = time.perf_counter() - t0
+    phases: dict = {}
+    _reset(K)
+    t0 = time.perf_counter()
+    new = rs.run(cohorts=COHORTS, phase_times=phases)
+    _sync(dev)
+    run_s = time.perf_counter() - t0
+    k0 = _k0_counts(K)
+    pubs_kept = all(new[j][w].public_key == old[0][w].public_key
+                    for j in range(5) for w in range(B))
+    epochs = sorted({s.epoch for row in new for s in row})
+    sample = sorted(np.random.default_rng(seed + 43).choice(B, min(B, 64), replace=False).tolist())
+    good = _recombines(new[2:], sample, 2, hm.SECP_N, _secp_pub)
+    emit({"phase": "reshare_engine", "B": B, "scheme": "2-of-3 -> 3-of-5 secp256k1",
+          "first_run_s": first_s, "run_s": run_s, "wallets_per_s": B / run_s,
+          "phases_s": phases, "public_keys_unchanged": pubs_kept, "epochs": epochs,
+          "sampled_recombined": f"{good}/{len(sample)}", "k0": _k0_json(k0)})
+    if not pubs_kept or epochs != [1] or good != len(sample):
+        raise AssertionError("reshare: keys, epoch or recombination wrong")
+    if k0["launches"] or k0["plain_calls"]:
+        raise AssertionError(f"the reshare reached K0 or its plain versions: {k0}")
+
+
+def _traced(parties, run_protocol, dev: str):
+    """Run ``parties`` with span recording on → (wall s, seconds per
+    runner round, seconds per party phase)."""
+    from mpcium_tpu_torch.utils import tracing
+
+    spans: list = []
+    tracing.enable(spans.append)
+    t0 = time.perf_counter()
+    try:
+        run_protocol(parties)
+        _sync(dev)
+    finally:
+        tracing.disable()
+    wall = time.perf_counter() - t0
+    rounds, phases = {}, {}
+    for sp in spans:
+        into = rounds if sp["name"].startswith("round:") else phases
+        into[sp["name"]] = into.get(sp["name"], 0.0) + (sp["t1_ns"] - sp["t0_ns"]) / 1e9
+    return wall, rounds, phases
+
+
+def _party_sign(sid, quorum, shares_by_pid, digests, seed, K, run_protocol, dev):
+    """Batched GG18 parties of ``quorum`` sign ``digests`` with K0's
+    counters zeroed just before; every signature verified on the host."""
+    import numpy as np
+
+    from mpcium_tpu_torch.protocol.ecdsa.batch_signing import BatchedECDSASigningParty
+    from mpcium_tpu_torch.utils.rng import SeededStream
+
+    t0 = time.perf_counter()
+    parties = {pid: BatchedECDSASigningParty(sid, pid, quorum, shares_by_pid[pid], digests,
+                                             rng=SeededStream(seed + i), cohorts=COHORTS,
+                                             device=dev)
+               for i, pid in enumerate(quorum)}
+    _sync(dev)
+    setup_s = time.perf_counter() - t0
+    _reset(K)
+    wall, rounds, phases = _traced(parties, run_protocol, dev)
+    k0 = _k0_counts(K)
+    res = [parties[p].result for p in quorum]
+    agree = all(np.array_equal(res[0][k], r[k]) for r in res for k in ("r", "s", "ok"))
+    t0 = time.perf_counter()
+    verified = verify_ecdsa([s.public_key for s in shares_by_pid[quorum[0]]], digests,
+                            res[0]["r"], res[0]["s"])
+    out = {"parties": quorum, "B": len(digests), "setup_s": setup_s, "sign_s": wall,
+           "sigs_per_s": len(digests) / wall, "seconds_by_round": rounds,
+           "seconds_by_phase": phases, "ok_all": all(bool(r["ok"].all()) for r in res),
+           "parties_agree": agree, "verified": verified,
+           "host_verify_s": time.perf_counter() - t0, "k0": _k0_json(k0)}
+    if not out["ok_all"] or not agree or verified != len(digests):
+        raise AssertionError(f"party sign {quorum}: {out}")
+    return out, k0
+
+
+def run_wallet_lifecycle(B: int, seed: int, K, dev: str = "cuda"):
+    """DKG → GG18 sign → reshare → sign, as distributed parties through
+    run_protocol on the 2048-bit fixture with full Domains()."""
+    import numpy as np
+
+    from mpcium_tpu_torch.cluster import load_test_preparams
+    from mpcium_tpu_torch.protocol.batch_dkg import BatchedDKGParty, BatchedReshareParty
+    from mpcium_tpu_torch.protocol.ecdsa.batch_signing import quorum_material_digest
+    from mpcium_tpu_torch.protocol.runner import run_protocol
+    from mpcium_tpu_torch.utils.rng import SeededStream
+
+    pre = load_test_preparams(2048)
+    sid = f"chip-lifecycle-{seed}"
+    dkg = {pid: BatchedDKGParty(f"{sid}-dkg", pid, UNIVERSE, 1, "secp256k1", B,
+                                preparams=pre[pid], rng=SeededStream(seed + 50 + i),
+                                cohorts=COHORTS, device=dev)
+           for i, pid in enumerate(UNIVERSE)}
+    dkg_s, dkg_rounds, dkg_phases = _traced(dkg, run_protocol, dev)
+    shares = {pid: p.result for pid, p in dkg.items()}
+    pubs = [s.public_key for s in shares["node0"]]
+    digest_equal = quorum_material_digest(shares["node0"][0]) == \
+        quorum_material_digest(shares["node1"][0]) != ""
+    drng = np.random.default_rng(seed + 60)
+    digests = [r.tobytes() for r in drng.integers(0, 256, (B, 32), dtype=np.uint8)]
+    sign1, k0 = _party_sign(f"{sid}-sign", ["node0", "node1"], shares, digests, seed + 61,
+                            K, run_protocol, dev)
+    old = ["node0", "node1"]
+    rs = {pid: BatchedReshareParty(f"{sid}-reshare", pid, "secp256k1", old, UNIVERSE, 1, B,
+                                   old_shares=shares[pid] if pid in old else None,
+                                   old_public_keys=pubs, preparams=pre[pid],
+                                   rng=SeededStream(seed + 70 + i), cohorts=COHORTS,
+                                   device=dev)
+          for i, pid in enumerate(UNIVERSE)}
+    rs_s, rs_rounds, rs_phases = _traced(rs, run_protocol, dev)
+    new = {pid: p.result for pid, p in rs.items()}
+    kept = all(new[pid][w].public_key == pubs[w] and new[pid][w].epoch == 1
+               for pid in UNIVERSE for w in range(B))
+    digests2 = [r.tobytes() for r in drng.integers(0, 256, (B, 32), dtype=np.uint8)]
+    sign2, _ = _party_sign(f"{sid}-sign2", ["node1", "node2"], new, digests2, seed + 80, K,
+                           run_protocol, dev)
+    emit({"phase": "wallet_lifecycle", "B": B, "fixture": "test_preparams.json (2048-bit)",
+          "domains": "Domains()", "cohorts": COHORTS,
+          "dkg": {"parties": UNIVERSE, "wall_s": dkg_s, "wallets_per_s": B / dkg_s,
+                  "seconds_by_round": dkg_rounds, "seconds_by_phase": dkg_phases},
+          "material_digest_equal": digest_equal, "sign": sign1,
+          "reshare": {"old_quorum": old, "new_committee": UNIVERSE, "t_new": 1,
+                      "wall_s": rs_s, "wallets_per_s": B / rs_s,
+                      "public_keys_unchanged_epoch_1": kept,
+                      "seconds_by_round": rs_rounds, "seconds_by_phase": rs_phases},
+          "sign_after_reshare": sign2})
+    if not digest_equal or not kept:
+        raise AssertionError("lifecycle: material digests differ or the reshare moved keys")
+    for n in (320, 608):
+        if k0["mulmod_by_width"].get(n, 0) == 0:
+            raise AssertionError(f"no mulmod launch at width {n} during the party sign")
+    for key in POWMOD_PATH:
+        if k0["powmod_by_mode_width"].get(key, 0) == 0:
+            raise AssertionError(f"no powmod launch of {key} during the party sign")
+    if k0["plain_calls"]:
+        raise AssertionError(f"a plain version ran {k0['plain_calls']}x on the card")
+    return k0
+
+
+def run_eddsa_dkg(B: int, seed: int, dev: str = "cuda") -> None:
+    """Three Ed25519 DKG parties, then two EdDSA signing parties sign
+    with the result; every signature verified on the host."""
+    import numpy as np
+
+    from mpcium_tpu_torch.protocol.batch_dkg import BatchedDKGParty
+    from mpcium_tpu_torch.protocol.eddsa.batch_signing import BatchedEDDSASigningParty
+    from mpcium_tpu_torch.protocol.runner import run_protocol
+    from mpcium_tpu_torch.utils.rng import SeededStream
+
+    sid = f"chip-eddsa-dkg-{seed}"
+    dkg = {pid: BatchedDKGParty(sid, pid, UNIVERSE, 1, "ed25519", B,
+                                rng=SeededStream(seed + 90 + i), cohorts=COHORTS, device=dev)
+           for i, pid in enumerate(UNIVERSE)}
+    dkg_s, dkg_rounds, dkg_phases = _traced(dkg, run_protocol, dev)
+    quorum = ["node0", "node1"]
+    msgs = [r.tobytes() for r in np.random.default_rng(seed + 95).integers(
+        0, 256, (B, 32), dtype=np.uint8)]
+    signers = {pid: BatchedEDDSASigningParty(f"{sid}-sign", pid, quorum, dkg[pid].result,
+                                             msgs, rng=SeededStream(seed + 96 + i),
+                                             cohorts=COHORTS, device=dev)
+               for i, pid in enumerate(quorum)}
+    sign_s, rounds, _phases = _traced(signers, run_protocol, dev)
+    res = [signers[p].result for p in quorum]
+    t0 = time.perf_counter()
+    verified = _host_verified(dkg["node0"].result, msgs, res[0]["signatures"])
+    ok_all = all(bool(r["ok"].all()) for r in res)
+    emit({"phase": "eddsa_dkg", "B": B, "dkg_wall_s": dkg_s, "dkg_wallets_per_s": B / dkg_s,
+          "dkg_seconds_by_round": dkg_rounds, "dkg_seconds_by_phase": dkg_phases,
+          "sign_s": sign_s, "sign_seconds_by_round": rounds, "ok_all": ok_all,
+          "verified": verified, "host_verify_s": time.perf_counter() - t0})
+    if not ok_all or verified != B:
+        raise AssertionError(f"EdDSA after DKG: ok/verified failed ({verified}/{B})")
+
+
 def main() -> int:
     t_script = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=1024, help="sessions B")
     ap.add_argument("--eddsa-batch", type=int, default=EDDSA_B, help="EdDSA sessions")
+    ap.add_argument("--dkg-batch", type=int, default=DKG_B, help="DKG engine wallets")
+    ap.add_argument("--lifecycle-batch", type=int, default=LIFECYCLE_B,
+                    help="wallets of the DKG → sign → reshare → sign parties")
     ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args()
 
@@ -940,6 +1369,12 @@ def main() -> int:
     eddsa_golden()
     ed_shares = run_eddsa_slice(args.eddsa_batch, args.seed, K)
     run_eddsa_party(min(EDDSA_PARTY_B, args.eddsa_batch), args.seed, ed_shares)
+    ecdsa_party_golden()
+    dkg_golden()
+    dkg_shares = run_dkg_engine(args.dkg_batch, args.seed, K)
+    run_reshare_engine(min(RESHARE_B, args.dkg_batch), args.seed, dkg_shares, K)
+    life = run_wallet_lifecycle(args.lifecycle_batch, args.seed, K)
+    run_eddsa_dkg(args.lifecycle_batch, args.seed)
     emit({"phase": "wall", "script_s": time.perf_counter() - t_script,
           "note": "from the start of main() to here"})
 
@@ -950,7 +1385,7 @@ def main() -> int:
             "route": "cuda",
             "source": "mpcium_tpu_torch/ops/csrc/mulmod.cu",
             "replaces": "mpcium_tpu/ops/pallas_mulmod.py:91",
-            "launches": by_width.get(n, 0),
+            "launches": life["mulmod_by_width"].get(n, 0),
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["kernel_ms"],
             "plain_ms": rec["plain_ms"],
@@ -965,7 +1400,7 @@ def main() -> int:
             "route": "cuda",
             "source": "mpcium_tpu_torch/ops/csrc/mulmod.cu",
             "replaces": "mpcium_tpu/ops/pallas_mulmod.py:91",
-            "launches": by_mode[(mode, n)],
+            "launches": life["powmod_by_mode_width"][(mode, n)],
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["kernel_ms"],
             "plain_ms": rec["plain_ms"],
@@ -983,4 +1418,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        if _POOL is not None:
+            _POOL.shutdown(cancel_futures=True)
+    sys.exit(rc)

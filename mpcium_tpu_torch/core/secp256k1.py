@@ -115,9 +115,7 @@ def double(a: SecpPointJ) -> SecpPointJ:
     F = _field(a.X)
     # t0 = Y², t1 = YZ, t2 = Z², xy = XY
     t0, t1, t2, xy = F.mul(_stack(a.Y, a.Y, a.Z, a.X), _stack(a.Y, a.Z, a.Z, a.Y))
-    z3, t2 = F.mul_small(
-        _stack(t0, t2), _FAC_8_21.to(t0.device)
-    ).unbind(0)  # 8·Y², 21·Z²
+    z3, t2 = F.mul_small(_stack(t0, t2), _fac_8_21(t0.device, t0.dim())).unbind(0)
     y3 = F.add(t0, t2)
     t0 = F.sub(t0, F.mul_small(t2, 3))
     x3, z3, y3, xx = F.mul(_stack(t2, t1, t0, t0), _stack(z3, z3, y3, xy))
@@ -125,7 +123,12 @@ def double(a: SecpPointJ) -> SecpPointJ:
     return SecpPointJ(X3, Y3, z3)
 
 
-_FAC_8_21 = torch.tensor([8.0, 21.0], dtype=torch.float64).reshape(2, 1, 1)
+@functools.lru_cache(maxsize=None)
+def _fac_8_21(device, ndim: int) -> torch.Tensor:
+    """The factors (8, 21) of 8·Y² and 21·Z², shaped to scale a stack of
+    two (..., 22) fields; cached per device, so no ladder step uploads."""
+    return torch.tensor([8.0, 21.0], dtype=torch.float64, device=device).view(
+        (2,) + (1,) * ndim)
 
 
 def select(mask: torch.Tensor, a: SecpPointJ, b: SecpPointJ) -> SecpPointJ:

@@ -596,16 +596,35 @@ def _blk_R(delta, Gamma_sum):
     return ok, R_pt, r, rec
 
 
-def _blk_schnorr(kpok_i, gamma_i, Gamma_i, comp_i, idx):
-    """Batched Schnorr PoK of γ_i: prove + self-verify (honest fabric)."""
+def _hash_scalar(tag: bytes, *rows: torch.Tensor) -> torch.Tensor:
+    """Fiat–Shamir challenge: SHA-256 of the tagged rows, reduced mod q."""
+    e32 = dev_hash(tag, *rows)
+    return _ring(e32).reduce(bn.bytes_to_limbs_le(e32, P256, 22))
+
+
+# -- the PoK blocks: prover and verifier run on different nodes in the
+# distributed party; the in-process fabric composes them ----------------
+
+
+def _blk_schnorr_prove(kpok_i, gamma_i, comp_i, idx):
+    """Schnorr PoK of γ_i, prover side → (A_comp, s_pok)."""
     ring = _ring(kpok_i)
-    A_pt, A_comp = _base_mul_compressed(kpok_i)
-    e32 = dev_hash(b"schnorr", idx, A_comp, comp_i)
-    e = ring.reduce(bn.bytes_to_limbs_le(e32, P256, 22))
-    s_pok = ring.submod(kpok_i, ring.mulmod(e, gamma_i))
+    _A_pt, A_comp = _base_mul_compressed(kpok_i)
+    e = _hash_scalar(b"schnorr", idx, A_comp, comp_i)
+    return A_comp, ring.submod(kpok_i, ring.mulmod(e, gamma_i))
+
+
+def _blk_schnorr_verify(A_comp, s_pok, Gamma_i, comp_i, idx) -> torch.Tensor:
+    """Schnorr PoK verify: s·G + e·Γ ?= A → (B,) bool."""
+    e = _hash_scalar(b"schnorr", idx, A_comp, comp_i)
     lhs = sp.add(sp.base_mul(_bits256(s_pok)), sp.scalar_mul(_bits256(e), Gamma_i))
-    # compress(lhs) == A_comp exactly when the points are equal
-    return sp.equal(lhs, A_pt)
+    return _eq_all(sp.compress(lhs), A_comp)
+
+
+def _blk_schnorr(kpok_i, gamma_i, Gamma_i, comp_i, idx):
+    """Batched Schnorr PoK of γ_i: prove, then verify (honest fabric)."""
+    A_comp, s_pok = _blk_schnorr_prove(kpok_i, gamma_i, comp_i, idx)
+    return _blk_schnorr_verify(A_comp, s_pok, Gamma_i, comp_i, idx)
 
 
 def _blk_va(m, r, k_i, sigma_i, l_i, rho_i, R_pt, blind_i, idx):
@@ -618,21 +637,57 @@ def _blk_va(m, r, k_i, sigma_i, l_i, rho_i, R_pt, blind_i, idx):
     return s_i, V_i, A_i, vc, ac, dev_hash(b"VA", idx, blind_i, vc, ac)
 
 
-def _blk_pedersen(ka, kb, s_i, l_i, V_i, R_pt, vc, ac, blind_i, idx, commit):
-    """Phase 5B per party: decommit check + PedersenPoK of (s_i, l_i)."""
+def _blk_pedersen_prove(ka, kb, s_i, l_i, R_pt, vc, ac, idx):
+    """Phase-5B PedersenPoK of (s_i, l_i), prover side → (Apok_comp, sa, sb)."""
     ring = _ring(ka)
-    ok = _eq_all(dev_hash(b"VA", idx, blind_i, vc, ac), commit)
     Apok = sp.add(sp.scalar_mul(_bits256(ka), R_pt), sp.base_mul(_bits256(kb)))
     Apok_comp = sp.compress(Apok)
-    e32 = dev_hash(b"pedersen", idx, Apok_comp, vc, ac)
-    e5 = ring.reduce(bn.bytes_to_limbs_le(e32, P256, 22))
+    e5 = _hash_scalar(b"pedersen", idx, Apok_comp, vc, ac)
     sa = ring.submod(ka, ring.mulmod(e5, s_i))
     sb = ring.submod(kb, ring.mulmod(e5, l_i))
+    return Apok_comp, sa, sb
+
+
+def _blk_pedersen_verify(Apok_comp, sa, sb, V_i, R_pt, vc, ac, idx) -> torch.Tensor:
+    """Phase-5B PedersenPoK verify: sa·R + sb·G + e·V ?= Apok."""
+    e5 = _hash_scalar(b"pedersen", idx, Apok_comp, vc, ac)
     lhs = sp.add(
         sp.add(sp.scalar_mul(_bits256(sa), R_pt), sp.base_mul(_bits256(sb))),
         sp.scalar_mul(_bits256(e5), V_i),
     )
-    return ok & sp.equal(lhs, Apok)
+    return _eq_all(sp.compress(lhs), Apok_comp)
+
+
+def _blk_va_check(blind_i, vc, ac, idx, commit) -> torch.Tensor:
+    """Phase-5B decommit check of a (V_c, A_c) commitment."""
+    return _eq_all(dev_hash(b"VA", idx, blind_i, vc, ac), commit)
+
+
+def _blk_pedersen(ka, kb, s_i, l_i, V_i, R_pt, vc, ac, blind_i, idx, commit):
+    """Phase 5B per party: decommit check, then the PedersenPoK of
+    (s_i, l_i) proved and verified (honest fabric)."""
+    ok = _blk_va_check(blind_i, vc, ac, idx, commit)
+    Apok_comp, sa, sb = _blk_pedersen_prove(ka, kb, s_i, l_i, R_pt, vc, ac, idx)
+    return ok & _blk_pedersen_verify(Apok_comp, sa, sb, V_i, R_pt, vc, ac, idx)
+
+
+def _blk_W_from_vss(C_comp: torch.Tensor, xj: int, lam_bits: torch.Tensor):
+    """W_j = λ_j · Σ_k x_j^k · C_k from aggregated VSS commitments.
+
+    ``C_comp``: (t+1, B, 33) compressed commitment points (wallet order),
+    ``xj``: the party's Shamir x (a small public int), ``lam_bits``: the
+    (256,) LSB-first bits of λ_j, shared by the batch. Returns (W
+    points, ok mask of the decompressions)."""
+    pts, ok_all = sp.decompress(C_comp)
+    ok = torch.all(ok_all, dim=0)
+    xj_bits = torch.as_tensor(
+        sp.scalars_to_bits([xj], n_bits=max(1, xj.bit_length()))[0], device=C_comp.device
+    )
+    t1 = C_comp.shape[0]
+    acc = sp.SecpPointJ(*(c[t1 - 1] for c in pts))
+    for k in range(t1 - 2, -1, -1):
+        acc = sp.add(sp.scalar_mul(xj_bits, acc), sp.SecpPointJ(*(c[k] for c in pts)))
+    return sp.scalar_mul(lam_bits, acc), ok
 
 
 def _blk_V(V_sum, m, r, Y):
@@ -669,6 +724,13 @@ def _blk_final(s, m, r, Y, rec):
     Rv = sp.add(sp.base_mul(_bits256(u1)), sp.scalar_mul(_bits256(u2), Y))
     ok = ok & torch.all(ring.reduce(sp.x_coordinate(Rv)) == r, dim=-1)
     return ok, s, rec
+
+
+def _step_final(st: Dict[str, torch.Tensor], Y) -> Dict[str, torch.Tensor]:
+    """Phase-5E combine and in-protocol verify as one round step over the
+    carried state {s, m, r, rec, ok} → {r, s, rec, ok}."""
+    ok_f, s, rec = _blk_final(st["s"], st["m"], st["r"], Y, st["rec"])
+    return {"r": st["r"], "s": s, "rec": rec, "ok": st["ok"] & ok_f}
 
 
 def _withcheck_curve(s1_q, e_q, U_pt, W_pt):
@@ -1087,9 +1149,9 @@ class GG18BatchCoSigners:
         s = s_i[0]
         for i in range(1, q):
             s = ring.addmod(s, s_i[i])
-        ok_f, s, rec = _blk_final(s, m, r, Y, rec)
+        st = _step_final({"s": s, "m": m, "r": r, "rec": rec, "ok": ok}, Y)
         pt.mark("r5_phase5_combine_verify")
-        return r, s, rec, ok & ok_f
+        return st["r"], st["s"], st["rec"], st["ok"]
 
 
 # ---------------------------------------------------------------------------

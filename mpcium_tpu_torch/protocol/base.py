@@ -9,9 +9,15 @@ decimal strings, bytes as hex).
 """
 from __future__ import annotations
 
+import hashlib
 import secrets
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..utils import tracing
 
 
 class ProtocolError(Exception):
@@ -143,3 +149,43 @@ class PartyBase:
 
     def broadcast(self, round_name: str, payload: Dict[str, Any]) -> RoundMsg:
         return RoundMsg(self.session_id, round_name, self.self_id, payload)
+
+    def unicast(self, to: str, round_name: str, payload: Dict[str, Any]) -> RoundMsg:
+        return RoundMsg(self.session_id, round_name, self.self_id, payload, to=to)
+
+
+class BatchBlockMixin:
+    """Fixed-shape byte-block helpers shared by the batched parties (the
+    ECDSA signing party and the DKG/reshare parties). The host class
+    provides ``session_id``, ``self_id``, ``B`` and ``device``.
+
+    ``_bind_row`` is security-relevant: the (B, 32) session+sender row is
+    hashed into every commitment and proof, so a transcript replayed from
+    another session or attributed to another party fails to verify. One
+    definition serves every batched protocol, so it cannot drift.
+    """
+
+    session_id: str
+    self_id: str
+    B: int
+    device: torch.device
+
+    def _bind_row(self, pid: str) -> torch.Tensor:
+        h = hashlib.sha256(f"{self.session_id}:{pid}".encode()).digest()
+        row = torch.tensor(list(h), dtype=torch.uint8, device=self.device)
+        return row.expand(self.B, 32)
+
+    def _phase(self, name: str):
+        """A span around one of this party's protocol phases."""
+        return tracing.span(f"phase:{name}", node=self.self_id, batch=self.B)
+
+    def _parse_block(self, hexstr: str, nbytes: int, pid: str) -> np.ndarray:
+        """A hex block of B rows of ``nbytes`` → (B, nbytes) uint8; a
+        malformed or wrong-size block is the sender's ProtocolError."""
+        try:
+            raw = bytes.fromhex(hexstr)
+        except ValueError:
+            raise ProtocolError("non-hex block", pid)
+        if len(raw) != self.B * nbytes:
+            raise ProtocolError(f"bad block size {len(raw)} != {self.B}x{nbytes}", pid)
+        return np.frombuffer(bytearray(raw), dtype=np.uint8).reshape(self.B, nbytes)

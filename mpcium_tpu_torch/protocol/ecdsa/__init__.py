@@ -1,1 +1,2 @@
-"""ECDSA protocol pieces of the port (the OT-MtA backend)."""
+"""ECDSA protocol pieces of the port: the OT-MtA backend, the batched
+GG18 signing party and the proofs its keygen material carries."""

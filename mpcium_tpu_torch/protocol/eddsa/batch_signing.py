@@ -43,13 +43,6 @@ def _block_commit(blind: bytes, block: bytes, bind: bytes) -> str:
     return hashlib.sha256(b"mpcium-tpu/bsign/" + bind + blind + block).hexdigest()
 
 
-def _span_sync(device: torch.device) -> None:
-    """Finish a cohort's queued device work before its span closes, so
-    the span is honest device time — only when tracing is on."""
-    if tracing.enabled() and device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 class BatchedEDDSASigningParty(PartyBase):
     """One signer's side of a B-session batch, computing on ``device``
     (None: the GPU; raises when there is none — pass ``device="cpu"``
@@ -120,7 +113,7 @@ class BatchedEDDSASigningParty(PartyBase):
                 with tracing.span("phase:bsign_nonce_commit",
                                   batch=sl.stop - sl.start, cohort=ci):
                     r_limbs, R_comp = eb.nonce_commitments(self._dev(r64[sl]))
-                    _span_sync(self.device)
+                    tracing.span_sync(self.device)
                 block = yield ("nonce_egress", lambda: R_comp.cpu().numpy().tobytes())
                 return r_limbs, block
 
@@ -195,7 +188,7 @@ class BatchedEDDSASigningParty(PartyBase):
                     parts = eb.partial_signature(
                         self._r_limbs_c[ci], self._dev(c64), self._dev(self.lamx[sl])
                     )
-                    _span_sync(self.device)
+                    tracing.span_sync(self.device)
                 egress = yield ("partial_egress", lambda: (
                     bn.limbs_to_bytes_le(parts, bn.P256, 32).cpu().numpy(),
                     ok_R.cpu().numpy(),
@@ -239,7 +232,7 @@ class BatchedEDDSASigningParty(PartyBase):
                     ok = eb.verify_signatures(
                         sigs, self._dev(self.A_comp[sl]), self._dev(self._c64[sl])
                     )
-                    _span_sync(self.device)
+                    tracing.span_sync(self.device)
                 return (yield ("sig_egress",
                                lambda: (sigs.cpu().numpy(), ok.cpu().numpy())))
 

@@ -92,6 +92,13 @@ def span(name: str, *, trace_id: Optional[str] = None, node: str = "local",
     return _Span(name, trace_id, node, tid, attrs)
 
 
+def span_sync(device: torch.device) -> None:
+    """Finish the device work queued inside a span before it closes, so
+    the span is honest device time — only while tracing is on."""
+    if _ENABLED and device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 class PhaseTimer:
     __slots__ = ("on", "phases", "device", "last")
 
