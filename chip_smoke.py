@@ -115,16 +115,17 @@ resharing do not):
 19. wallet_lifecycle — the distributed parties through ``run_protocol``
     with span recording on, on the 2048-bit fixture with full
     ``Domains()``: three ``BatchedDKGParty`` create LIFECYCLE_B
-    secp256k1 wallets; node0's and node1's material digests agree;
+    secp256k1 wallets (K0 reads 0); node0's and node1's material digests
+    agree;
     node0 + node1 sign LIFECYCLE_B digests with
     ``BatchedECDSASigningParty`` (K0's counters zeroed just before: both
     entries at both widths, every powmod mode of the path, no plain
     call); ``BatchedReshareParty`` rotates to node0–node2 (t=1, epoch 1,
-    keys unchanged); node1 + node2 sign LIFECYCLE_B digests with the new
+    keys unchanged, K0 reads 0); node1 + node2 sign LIFECYCLE_B digests with the new
     shares. Every ok true, the parties agree, every signature verified
     on the host; seconds per runner round and per party phase.
 20. eddsa_dkg — three ed25519 ``BatchedDKGParty`` create LIFECYCLE_B
-    wallets, and ``BatchedEDDSASigningParty`` node0 + node1 sign with
+    wallets (K0 reads 0), and ``BatchedEDDSASigningParty`` node0 + node1 sign with
     them: every ok true, every signature verified on the host.
 
 Every host verification runs the port's python-int verifiers over all
@@ -135,8 +136,7 @@ Then the script's wall time, a ``{"kernels": [...]}`` line, the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero.
 
-    python3 chip_smoke.py [--batch 1024] [--eddsa-batch 4096] [--dkg-batch 4096]
-        [--lifecycle-batch 1024] [--seed 1]
+    python3 chip_smoke.py [--batch 1024] [--eddsa-batch 4096] [--seed 1]
 """
 from __future__ import annotations
 
@@ -972,9 +972,6 @@ UNIVERSE = ["node0", "node1", "node2"]
 
 def _k0_counts(K):
     """K0 launches by entry, mode and width, and plain-version calls."""
-    if K is None:
-        return {"launches": 0, "mulmod_by_width": {}, "powmod_by_mode_width": {},
-                "plain_calls": 0}
     return {
         "launches": K.launches + sum(K.powmod_launches_by_mode_width.values()),
         "mulmod_by_width": dict(K.launches_by_width),
@@ -991,9 +988,13 @@ def _k0_json(c) -> dict:
                                               sorted(c["powmod_by_mode_width"].items())}}
 
 
-def _reset(K) -> None:
-    if K is not None:
-        K.reset_counters()
+def _no_k0(K, what: str) -> dict:
+    """K0's counters since the last reset, which must read 0: ``what``
+    reaches neither K0 nor its plain versions."""
+    k0 = _k0_counts(K)
+    if k0["launches"] or k0["plain_calls"]:
+        raise AssertionError(f"{what} reached K0 or its plain versions: {k0}")
+    return _k0_json(k0)
 
 
 def _recombines(party_shares, wallets, t: int, order: int, mul) -> int:
@@ -1093,12 +1094,12 @@ def run_dkg_engine(B: int, seed: int, K, dev: str = "cuda"):
     dkg.run(B, cohorts=COHORTS)
     first_s = time.perf_counter() - t0
     phases: dict = {}
-    _reset(K)
+    K.reset_counters()
     t0 = time.perf_counter()
-    shares = dkg.run(B, cohorts=COHORTS, phase_times=phases)
+    shares = dkg.run(B, cohorts=COHORTS, phase_times=phases)  # raises on any VSS failure
     _sync(dev)
     run_s = time.perf_counter() - t0
-    k0 = _k0_counts(K)
+    k0 = _no_k0(K, "the DKG engine")
     sample = sorted(np.random.default_rng(seed + 41).choice(B, min(B, 64), replace=False).tolist())
     t0 = time.perf_counter()
     good = _recombines(shares, sample, 1, hm.SECP_N, _secp_pub)
@@ -1106,13 +1107,11 @@ def run_dkg_engine(B: int, seed: int, K, dev: str = "cuda"):
     emit({"phase": "dkg_engine", "B": B, "scheme": "2-of-3 secp256k1 Feldman DKG",
           "cohorts": resolve_cohorts(B, COHORTS), "first_run_s": first_s, "run_s": run_s,
           "wallets_per_s": B / run_s, "phases_s": phases,
-          "vss_ok_all": True, "public_keys_agree": same_pub,
+          "public_keys_agree": same_pub,
           "sampled_recombined": f"{good}/{len(sample)}",
-          "recombine_s": time.perf_counter() - t0, "k0": _k0_json(k0)})
+          "recombine_s": time.perf_counter() - t0, "k0": k0})
     if good != len(sample) or not same_pub:
         raise AssertionError(f"DKG: {good}/{len(sample)} sampled wallets recombine")
-    if k0["launches"] or k0["plain_calls"]:
-        raise AssertionError(f"the DKG reached K0 or its plain versions: {k0}")
     return shares
 
 
@@ -1133,12 +1132,12 @@ def run_reshare_engine(B: int, seed: int, dkg_shares, K, dev: str = "cuda") -> N
     rs.run(cohorts=COHORTS)
     first_s = time.perf_counter() - t0
     phases: dict = {}
-    _reset(K)
+    K.reset_counters()
     t0 = time.perf_counter()
     new = rs.run(cohorts=COHORTS, phase_times=phases)
     _sync(dev)
     run_s = time.perf_counter() - t0
-    k0 = _k0_counts(K)
+    k0 = _no_k0(K, "the reshare engine")
     pubs_kept = all(new[j][w].public_key == old[0][w].public_key
                     for j in range(5) for w in range(B))
     epochs = sorted({s.epoch for row in new for s in row})
@@ -1147,11 +1146,9 @@ def run_reshare_engine(B: int, seed: int, dkg_shares, K, dev: str = "cuda") -> N
     emit({"phase": "reshare_engine", "B": B, "scheme": "2-of-3 -> 3-of-5 secp256k1",
           "first_run_s": first_s, "run_s": run_s, "wallets_per_s": B / run_s,
           "phases_s": phases, "public_keys_unchanged": pubs_kept, "epochs": epochs,
-          "sampled_recombined": f"{good}/{len(sample)}", "k0": _k0_json(k0)})
+          "sampled_recombined": f"{good}/{len(sample)}", "k0": k0})
     if not pubs_kept or epochs != [1] or good != len(sample):
         raise AssertionError("reshare: keys, epoch or recombination wrong")
-    if k0["launches"] or k0["plain_calls"]:
-        raise AssertionError(f"the reshare reached K0 or its plain versions: {k0}")
 
 
 def _traced(parties, run_protocol, dev: str):
@@ -1190,7 +1187,7 @@ def _party_sign(sid, quorum, shares_by_pid, digests, seed, K, run_protocol, dev)
                for i, pid in enumerate(quorum)}
     _sync(dev)
     setup_s = time.perf_counter() - t0
-    _reset(K)
+    K.reset_counters()
     wall, rounds, phases = _traced(parties, run_protocol, dev)
     k0 = _k0_counts(K)
     res = [parties[p].result for p in quorum]
@@ -1225,7 +1222,9 @@ def run_wallet_lifecycle(B: int, seed: int, K, dev: str = "cuda"):
                                 preparams=pre[pid], rng=SeededStream(seed + 50 + i),
                                 cohorts=COHORTS, device=dev)
            for i, pid in enumerate(UNIVERSE)}
+    K.reset_counters()
     dkg_s, dkg_rounds, dkg_phases = _traced(dkg, run_protocol, dev)
+    dkg_k0 = _no_k0(K, "the DKG parties")
     shares = {pid: p.result for pid, p in dkg.items()}
     pubs = [s.public_key for s in shares["node0"]]
     digest_equal = quorum_material_digest(shares["node0"][0]) == \
@@ -1241,7 +1240,9 @@ def run_wallet_lifecycle(B: int, seed: int, K, dev: str = "cuda"):
                                    rng=SeededStream(seed + 70 + i), cohorts=COHORTS,
                                    device=dev)
           for i, pid in enumerate(UNIVERSE)}
+    K.reset_counters()
     rs_s, rs_rounds, rs_phases = _traced(rs, run_protocol, dev)
+    rs_k0 = _no_k0(K, "the reshare parties")
     new = {pid: p.result for pid, p in rs.items()}
     kept = all(new[pid][w].public_key == pubs[w] and new[pid][w].epoch == 1
                for pid in UNIVERSE for w in range(B))
@@ -1251,12 +1252,14 @@ def run_wallet_lifecycle(B: int, seed: int, K, dev: str = "cuda"):
     emit({"phase": "wallet_lifecycle", "B": B, "fixture": "test_preparams.json (2048-bit)",
           "domains": "Domains()", "cohorts": COHORTS,
           "dkg": {"parties": UNIVERSE, "wall_s": dkg_s, "wallets_per_s": B / dkg_s,
-                  "seconds_by_round": dkg_rounds, "seconds_by_phase": dkg_phases},
+                  "seconds_by_round": dkg_rounds, "seconds_by_phase": dkg_phases,
+                  "k0": dkg_k0},
           "material_digest_equal": digest_equal, "sign": sign1,
           "reshare": {"old_quorum": old, "new_committee": UNIVERSE, "t_new": 1,
                       "wall_s": rs_s, "wallets_per_s": B / rs_s,
                       "public_keys_unchanged_epoch_1": kept,
-                      "seconds_by_round": rs_rounds, "seconds_by_phase": rs_phases},
+                      "seconds_by_round": rs_rounds, "seconds_by_phase": rs_phases,
+                      "k0": rs_k0},
           "sign_after_reshare": sign2})
     if not digest_equal or not kept:
         raise AssertionError("lifecycle: material digests differ or the reshare moved keys")
@@ -1271,9 +1274,10 @@ def run_wallet_lifecycle(B: int, seed: int, K, dev: str = "cuda"):
     return k0
 
 
-def run_eddsa_dkg(B: int, seed: int, dev: str = "cuda") -> None:
-    """Three Ed25519 DKG parties, then two EdDSA signing parties sign
-    with the result; every signature verified on the host."""
+def run_eddsa_dkg(B: int, seed: int, K, dev: str = "cuda") -> None:
+    """Three Ed25519 DKG parties (K0's counters zeroed just before, read
+    just after: 0), then two EdDSA signing parties sign with the result;
+    every signature verified on the host."""
     import numpy as np
 
     from mpcium_tpu_torch.protocol.batch_dkg import BatchedDKGParty
@@ -1285,7 +1289,9 @@ def run_eddsa_dkg(B: int, seed: int, dev: str = "cuda") -> None:
     dkg = {pid: BatchedDKGParty(sid, pid, UNIVERSE, 1, "ed25519", B,
                                 rng=SeededStream(seed + 90 + i), cohorts=COHORTS, device=dev)
            for i, pid in enumerate(UNIVERSE)}
+    K.reset_counters()
     dkg_s, dkg_rounds, dkg_phases = _traced(dkg, run_protocol, dev)
+    dkg_k0 = _no_k0(K, "the Ed25519 DKG parties")
     quorum = ["node0", "node1"]
     msgs = [r.tobytes() for r in np.random.default_rng(seed + 95).integers(
         0, 256, (B, 32), dtype=np.uint8)]
@@ -1300,7 +1306,7 @@ def run_eddsa_dkg(B: int, seed: int, dev: str = "cuda") -> None:
     ok_all = all(bool(r["ok"].all()) for r in res)
     emit({"phase": "eddsa_dkg", "B": B, "dkg_wall_s": dkg_s, "dkg_wallets_per_s": B / dkg_s,
           "dkg_seconds_by_round": dkg_rounds, "dkg_seconds_by_phase": dkg_phases,
-          "sign_s": sign_s, "sign_seconds_by_round": rounds, "ok_all": ok_all,
+          "dkg_k0": dkg_k0, "sign_s": sign_s, "sign_seconds_by_round": rounds, "ok_all": ok_all,
           "verified": verified, "host_verify_s": time.perf_counter() - t0})
     if not ok_all or verified != B:
         raise AssertionError(f"EdDSA after DKG: ok/verified failed ({verified}/{B})")
@@ -1311,9 +1317,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=1024, help="sessions B")
     ap.add_argument("--eddsa-batch", type=int, default=EDDSA_B, help="EdDSA sessions")
-    ap.add_argument("--dkg-batch", type=int, default=DKG_B, help="DKG engine wallets")
-    ap.add_argument("--lifecycle-batch", type=int, default=LIFECYCLE_B,
-                    help="wallets of the DKG → sign → reshare → sign parties")
     ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args()
 
@@ -1371,10 +1374,10 @@ def main() -> int:
     run_eddsa_party(min(EDDSA_PARTY_B, args.eddsa_batch), args.seed, ed_shares)
     ecdsa_party_golden()
     dkg_golden()
-    dkg_shares = run_dkg_engine(args.dkg_batch, args.seed, K)
-    run_reshare_engine(min(RESHARE_B, args.dkg_batch), args.seed, dkg_shares, K)
-    life = run_wallet_lifecycle(args.lifecycle_batch, args.seed, K)
-    run_eddsa_dkg(args.lifecycle_batch, args.seed)
+    dkg_shares = run_dkg_engine(DKG_B, args.seed, K)
+    run_reshare_engine(RESHARE_B, args.seed, dkg_shares, K)
+    life = run_wallet_lifecycle(LIFECYCLE_B, args.seed, K)
+    run_eddsa_dkg(LIFECYCLE_B, args.seed, K)
     emit({"phase": "wall", "script_s": time.perf_counter() - t_script,
           "note": "from the start of main() to here"})
 

@@ -11,21 +11,18 @@ What two implementations must agree on for the same seeded streams:
   to the committee node0, node1, so node2 leaves with no result): every
   wire message in the runner's order and every share.
 
-Long wire fields (the DLN and Paillier proofs) are recorded by the
-SHA-256 of their canonical JSON, and a share's ``aux`` (the node's
-Paillier key and its peers' material) by the SHA-256 of its canonical
-JSON. The functions take the module or classes under test (the JAX
+The wire is recorded by ``wire_record`` (the DLN and Paillier proofs
+by their SHA-256), and a share's ``aux`` (the node's Paillier key and
+its peers' material) by the SHA-256 of its canonical JSON. The functions take the module or classes under test (the JAX
 package's or the port's), so one record format serves the JAX package
 on the CPU, the port on the CPU and the port on the card.
 """
 from __future__ import annotations
 
-import hashlib
 from typing import Dict, List
 
-from ..wire import canonical_json
-from .gg18_party_golden import INLINE
 from .rng import SeededStream
+from .wire_record import digest, run_recorded
 
 UNIVERSE = ["node0", "node1", "node2"]
 THRESHOLD = 1
@@ -43,24 +40,14 @@ PARTY = {"session": "dkg-golden-b4", "dkg": 820, "reshare": 830, "cohorts": 2,
          "t_new": 1, "min_paillier_bits": 1024}
 
 
-def _digest(obj) -> str:
-    return "sha256:" + hashlib.sha256(canonical_json(obj)).hexdigest()
-
-
 def share_row(s) -> Dict:
     d = s.to_json()
-    d["aux"] = _digest(d["aux"])
+    d["aux"] = digest(d["aux"])
     return d
 
 
 def shares_rows(party_shares) -> List[List[Dict]]:
     return [[share_row(s) for s in row] for row in party_shares]
-
-
-def wire_entry(m) -> List:
-    return [m.round, m.from_id, m.to, {
-        k: v if isinstance(v, (str, bool)) and len(str(v)) <= INLINE else _digest(v)
-        for k, v in m.payload.items()}]
 
 
 def engine_record(dkg, cohorts: int, **kw) -> Dict:
@@ -77,23 +64,6 @@ def engine_record(dkg, cohorts: int, **kw) -> Dict:
     return rec
 
 
-def _run_recorded(parties: Dict, run_protocol) -> List:
-    wire: List = []
-
-    def recorded(fn):
-        def call(*args):
-            out = fn(*args)
-            wire.extend(wire_entry(m) for m in out)
-            return out
-
-        return call
-
-    for p in parties.values():
-        p.start, p.receive = recorded(p.start), recorded(p.receive)
-    run_protocol(parties)
-    return wire
-
-
 def party_record(dkg_party_cls, reshare_party_cls, run_protocol, preparams, cohorts: int,
                  **party_kw) -> Dict:
     """A DKG batch per curve, then a reshare of it; ``preparams`` are the
@@ -108,7 +78,7 @@ def party_record(dkg_party_cls, reshare_party_cls, run_protocol, preparams, coho
                                **party_kw)
             for i, pid in enumerate(UNIVERSE)
         }
-        dkg_wire = _run_recorded(dkg, run_protocol)
+        dkg_wire = run_recorded(dkg, run_protocol)
         pubs = [s.public_key for s in dkg[UNIVERSE[0]].result]
         old_q, new_c = PARTY["old_quorum"], PARTY["new_committee"]
         rs = {}
@@ -119,7 +89,7 @@ def party_record(dkg_party_cls, reshare_party_cls, run_protocol, preparams, coho
                 preparams=pre(pid) if pid in new_c else None,
                 min_paillier_bits=PARTY["min_paillier_bits"],
                 rng=SeededStream(PARTY["reshare"] + 10 * ci + i), cohorts=cohorts, **party_kw)
-        rs_wire = _run_recorded(rs, run_protocol)
+        rs_wire = run_recorded(rs, run_protocol)
         rec[kt] = {
             "dkg": {"wire": dkg_wire,
                     "shares": {pid: [share_row(s) for s in p.result] for pid, p in dkg.items()},

@@ -4,22 +4,22 @@ What two implementations of ``BatchedECDSASigningParty`` must agree on
 for the same shares, digests and seeded streams: every wire message of
 a B-wallet batch signed by the QUORUM parties of a 2-of-3 universe (in
 the in-process runner's order), each party's result (r, s, recovery,
-ok) and each party's quorum material digest. The 1024-bit range proofs
-make large payload fields: a field longer than INLINE hex characters
-is recorded as the SHA-256 of its text, the rest in full. The functions
+ok) and each party's quorum material digest. The wire is recorded by
+``wire_record`` (a payload field longer than ``INLINE`` characters, such as
+a 1024-bit range proof, by its SHA-256). The functions
 take the engine module and the party class under test (the JAX
 package's or the port's), so one record format serves the JAX package
 on the CPU, the port on the CPU and the port on the card.
 """
 from __future__ import annotations
 
-import hashlib
 from typing import Dict, List
 
 import numpy as np
 
 from .ot_golden import host
 from .rng import SeededStream
+from .wire_record import run_recorded
 
 UNIVERSE = ["node0", "node1", "node2"]
 QUORUM = ["node0", "node1"]
@@ -31,33 +31,11 @@ DOMAINS = {"alpha": 600, "beta_prime": 320, "gamma_bob": 600}
 SEEDS = {"keygen": 701, "digests": 703, "party": 710}
 SESSION = "gg18-party-golden-b4"
 COHORTS = [1, 2]
-INLINE = 256
 
 
 def digests(n: int, seed: int) -> List[bytes]:
     rows = np.random.default_rng(seed).integers(0, 256, (n, 32), dtype=np.uint8)
     return [r.tobytes() for r in rows]
-
-
-def wire_field(v):
-    if isinstance(v, str) and len(v) > INLINE:
-        return "sha256:" + hashlib.sha256(v.encode()).hexdigest()
-    return v
-
-
-def wire_entry(m) -> List:
-    return [m.round, m.from_id, m.to, {k: wire_field(v) for k, v in m.payload.items()}]
-
-
-def recorded(fn, wire: List):
-    """Wrap a party's ``start``/``receive`` so each message it sends is
-    appended to ``wire``."""
-    def call(*args):
-        out = fn(*args)
-        wire.extend(wire_entry(m) for m in out)
-        return out
-
-    return call
 
 
 def signature_rows(result) -> Dict:
@@ -77,15 +55,11 @@ def party_record(gb, party_cls, run_protocol, material_digest, preparams, cohort
                                          rng=SeededStream(SEEDS["keygen"]),
                                          preparams=preparams)
     digs = digests(B, SEEDS["digests"])
-    wire: List = []
-    parties = {}
-    for i, pid in enumerate(QUORUM):
-        p = party_cls(SESSION, pid, QUORUM, shares[UNIVERSE.index(pid)], digs,
-                      dom=gb.Domains(**DOMAINS), rng=SeededStream(SEEDS["party"] + i),
-                      cohorts=cohorts, **party_kw)
-        p.start, p.receive = recorded(p.start, wire), recorded(p.receive, wire)
-        parties[pid] = p
-    run_protocol(parties)
+    parties = {pid: party_cls(SESSION, pid, QUORUM, shares[UNIVERSE.index(pid)], digs,
+                              dom=gb.Domains(**DOMAINS), rng=SeededStream(SEEDS["party"] + i),
+                              cohorts=cohorts, **party_kw)
+               for i, pid in enumerate(QUORUM)}
+    wire = run_recorded(parties, run_protocol)
     return {
         "public_keys": [s.public_key.hex() for s in shares[0]],
         "digests": [d.hex() for d in digs],

@@ -19,6 +19,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch_golden_writer as gw
 
 torch.set_num_threads(1)
 
@@ -205,29 +206,21 @@ def test_live_jax_parties_match_the_golden():
 
 
 def write_golden() -> None:
-    import subprocess
-
     from mpcium_tpu_torch.utils import dkg_golden as dg
 
-    for attempt in range(2):
-        r = subprocess.run([sys.executable, __file__, "--golden-case"],
-                           capture_output=True, text=True)
-        if r.returncode == 0:
-            break
-        print(f"attempt {attempt}: rc={r.returncode}\n{r.stderr[-2000:]}", flush=True)
-    r.check_returncode()
+    record = gw.child_record(__file__)
     GOLDEN.write_text(json.dumps({
         "about": "wire messages and shares of mpcium_tpu.protocol.batch_dkg."
                  "BatchedDKGParty and BatchedReshareParty on the CPU at cohorts "
                  f"{dg.PARTY['cohorts']} (tests/test_torch_batch_dkg_party.py "
                  "--write-golden); parameters in mpcium_tpu_torch/utils/dkg_golden.py",
         "fixture": "test_preparams_1024.json",
-        "record": json.loads(r.stdout.strip().splitlines()[-1]),
+        "record": record,
     }, indent=1) + "\n")
 
 
 def _jax_case() -> dict:
-    _setup_jax()
+    gw.setup_jax()
     from mpcium_tpu.cluster import load_test_preparams
     from mpcium_tpu.protocol.batch_dkg import BatchedDKGParty, BatchedReshareParty
     from mpcium_tpu.protocol.runner import run_protocol
@@ -235,41 +228,16 @@ def _jax_case() -> dict:
 
     class DKG(BatchedDKGParty):
         def receive(self, msg):
-            _jit_relief()
+            gw.jit_relief()
             return super().receive(msg)
 
     class Reshare(BatchedReshareParty):
         def receive(self, msg):
-            _jit_relief()
+            gw.jit_relief()
             return super().receive(msg)
 
     return dg.party_record(DKG, Reshare, run_protocol, load_test_preparams(bits=1024),
                            dg.PARTY["cohorts"])
-
-
-def _setup_jax():
-    """JAX on the CPU with the test compile cache; every compile is kept,
-    so executables dropped by :func:`_jit_relief` reload from disk."""
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", str(ROOT / ".jax_cache_tests"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
-    return jax
-
-
-def _jit_relief(limit: int = 30000) -> None:
-    """XLA:CPU maps JIT code per compiled executable, and a process may
-    hold 65,530 memory maps: a long JAX protocol run drops its compiled
-    executables once past ``limit`` maps (they reload from the cache)."""
-    import gc
-
-    import jax
-
-    with open("/proc/self/maps") as f:
-        if sum(1 for _ in f) > limit:
-            jax.clear_caches()
-            gc.collect()
 
 
 if __name__ == "__main__":

@@ -18,6 +18,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch_golden_writer as gw
 
 torch.set_num_threads(1)
 
@@ -103,23 +104,11 @@ def test_live_jax_engines_match_the_golden():
 
 
 def write_golden() -> None:
-    """Each cohort count runs in a child process (a signal-killed child
-    is retried once); both counts must give the same record."""
-    import subprocess
-
+    """Each cohort count runs in a child process; both counts must give
+    the same record."""
     from mpcium_tpu_torch.utils import dkg_golden as dg
 
-    records = []
-    for k in dg.COHORTS:
-        for attempt in range(2):
-            r = subprocess.run([sys.executable, __file__, "--golden-case", str(k)],
-                               capture_output=True, text=True)
-            if r.returncode == 0:
-                break
-            print(f"cohorts={k} attempt {attempt}: rc={r.returncode}\n{r.stderr[-2000:]}",
-                  flush=True)
-        r.check_returncode()
-        records.append(json.loads(r.stdout.strip().splitlines()[-1]))
+    records = [gw.child_record(__file__, k) for k in dg.COHORTS]
     assert all(rec == records[0] for rec in records), "shares depend on the cohort count"
     GOLDEN.write_text(json.dumps({
         "about": "shares of mpcium_tpu.engine.dkg_batch.BatchedDKG and BatchedReshare on "
@@ -132,7 +121,7 @@ def write_golden() -> None:
 
 
 def _jax_case(cohorts: int) -> dict:
-    _setup_jax()
+    gw.setup_jax()
     from mpcium_tpu.engine import dkg_batch as jdkg
     from mpcium_tpu_torch.utils import dkg_golden as dg
 
@@ -141,40 +130,15 @@ def _jax_case(cohorts: int) -> dict:
 
         @staticmethod
         def BatchedDKG(*a, **kw):
-            _jit_relief()
+            gw.jit_relief()
             return jdkg.BatchedDKG(*a, **kw)
 
         @staticmethod
         def BatchedReshare(*a, **kw):
-            _jit_relief()
+            gw.jit_relief()
             return jdkg.BatchedReshare(*a, **kw)
 
     return dg.engine_record(Engines, cohorts)
-
-
-def _setup_jax():
-    """JAX on the CPU with the test compile cache; every compile is kept,
-    so executables dropped by :func:`_jit_relief` reload from disk."""
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", str(ROOT / ".jax_cache_tests"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
-    return jax
-
-
-def _jit_relief(limit: int = 30000) -> None:
-    """XLA:CPU maps JIT code per compiled executable, and a process may
-    hold 65,530 memory maps: a long JAX protocol run drops its compiled
-    executables once past ``limit`` maps (they reload from the cache)."""
-    import gc
-
-    import jax
-
-    with open("/proc/self/maps") as f:
-        if sum(1 for _ in f) > limit:
-            jax.clear_caches()
-            gc.collect()
 
 
 if __name__ == "__main__":

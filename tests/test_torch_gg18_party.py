@@ -21,6 +21,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch_golden_writer as gw
 
 torch.set_num_threads(1)  # tiny float64 matmuls: threads only contend
 
@@ -289,25 +290,13 @@ def test_live_jax_party_matches_the_golden():
 
 
 def write_golden() -> None:
-    """Each cohort count runs in a child process (an XLA:CPU crash or
-    JIT exhaustion on one host must not take the writer down); a child
-    that dies of a signal is retried once. Both counts must give the
-    same record."""
-    import subprocess
-
+    """Each cohort count runs in a child process; both counts must give
+    the same record."""
     from mpcium_tpu_torch.utils import gg18_party_golden as pg
 
     records = []
     for k in pg.COHORTS:
-        for attempt in range(2):
-            r = subprocess.run([sys.executable, __file__, "--golden-case", str(k)],
-                               capture_output=True, text=True)
-            if r.returncode == 0:
-                break
-            print(f"cohorts={k} attempt {attempt}: rc={r.returncode}\n{r.stderr[-2000:]}",
-                  flush=True)
-        r.check_returncode()
-        records.append(json.loads(r.stdout.strip().splitlines()[-1]))
+        records.append(gw.child_record(__file__, k))
         print(f"cohorts={k} ok={[v['ok'] for v in records[-1]['results'].values()]}",
               flush=True)
     assert all(rec == records[0] for rec in records), "the wire depends on the cohort count"
@@ -323,7 +312,7 @@ def write_golden() -> None:
 
 
 def _jax_case(cohorts: int) -> dict:
-    _setup_jax()
+    gw.setup_jax()
     from mpcium_tpu.cluster import load_test_preparams
     from mpcium_tpu.engine import gg18_batch as jgb
     from mpcium_tpu.protocol.ecdsa.batch_signing import (
@@ -334,36 +323,11 @@ def _jax_case(cohorts: int) -> dict:
 
     class Party(BatchedECDSASigningParty):
         def receive(self, msg):
-            _jit_relief()
+            gw.jit_relief()
             return super().receive(msg)
 
     return pg.party_record(jgb, Party, run_protocol, quorum_material_digest,
                            load_test_preparams(bits=1024), cohorts)
-
-
-def _setup_jax():
-    """JAX on the CPU with the test compile cache; every compile is kept,
-    so executables dropped by :func:`_jit_relief` reload from disk."""
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", str(ROOT / ".jax_cache_tests"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
-    return jax
-
-
-def _jit_relief(limit: int = 30000) -> None:
-    """XLA:CPU maps JIT code per compiled executable, and a process may
-    hold 65,530 memory maps: a long JAX protocol run drops its compiled
-    executables once past ``limit`` maps (they reload from the cache)."""
-    import gc
-
-    import jax
-
-    with open("/proc/self/maps") as f:
-        if sum(1 for _ in f) > limit:
-            jax.clear_caches()
-            gc.collect()
 
 
 if __name__ == "__main__":
