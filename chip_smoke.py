@@ -128,6 +128,37 @@ resharing do not):
     wallets (K0 reads 0), and ``BatchedEDDSASigningParty`` node0 + node1 sign with
     them: every ok true, every signature verified on the host.
 
+The per-session protocols (one wallet per session, host python ints;
+the wallets they make sign in the batched parties on the card):
+
+21. session_eddsa — SESSION_ED_W ed25519 wallets by ``EDDSAKeygenParty``
+    (2-of-3), each signed per session by node0 + node1 twice: with
+    ``MPCIUM_EDDSA_DEVICE_HASH_SESSION=1`` (the challenge through
+    ``ops.hash_suite.sha512_bytes`` on the card) and without (hashlib),
+    and the two signatures must be equal byte for byte; SESSION_ED_ROTATE
+    of them rotated by ``ResharingParty`` (node0 + node1 → node0–node2,
+    epoch 1) and signed again by node1 + node2; all of them signed as one
+    batch by ``BatchedEDDSASigningParty`` (node0 + node2) on the card.
+    Every signature verified on the host, and the JAX parties' golden
+    ``session_eddsa.json`` replayed with the device hash on, each run
+    through a snapshot and restore, byte for byte.
+22. session_ecdsa — SESSION_W secp256k1 wallets, one task each on a
+    spawned pool of their own that main() starts before the first GPU
+    phase (niced, so the main process keeps priority): a 2-of-3
+    ``ECDSAKeygenParty`` on the 2048-bit fixture at the full
+    ``MIN_PAILLIER_BITS``, an ``ECDSASigningParty`` sign by node0 + node1,
+    a ``ResharingParty`` rotation from node0 + node1 to node0–node2 (t=1,
+    epoch 1) and a sign by node1 + node2; both signatures verified on the
+    host against the keygen's key. The line gives each protocol's wall
+    per wallet and the wait at the join.
+23. session_batch_sign — the epoch-1 shares of phase 22 signed as one
+    batch by node1 + node2 with ``BatchedECDSASigningParty`` (full
+    ``Domains()``) on the card: the shares' quorum material digests must
+    be equal and non-empty (the scheduler's admission test), K0's
+    counters zeroed just before must show launches of both entries and
+    no plain call, and every (r, s) must verify on the host against the
+    per-session keys.
+
 Every host verification runs the port's python-int verifiers over all
 signatures, spread over a pool of worker processes (one per host core).
 The kernels line's launch counts are phase 19's first party sign.
@@ -1312,6 +1343,249 @@ def run_eddsa_dkg(B: int, seed: int, K, dev: str = "cuda") -> None:
         raise AssertionError(f"EdDSA after DKG: ok/verified failed ({verified}/{B})")
 
 
+# ---------------------------------------------------------------------------
+# the per-session protocols: one wallet per session, host python ints,
+# and the batched sign on the card of the wallets they make
+# ---------------------------------------------------------------------------
+
+SESSION_W = 4  # secp256k1 wallets made and rotated per session, one pool task each
+SESSION_ED_W = 64  # ed25519 wallets made per session
+SESSION_ED_ROTATE = 8  # of them rotated per session
+
+_SESSION_POOL = None
+
+
+def _session_wallet(w: int, seed: int) -> dict:
+    """A task of the session pool, host only: a 2-of-3 ECDSAKeygenParty
+    over node0–node2 on the 2048-bit fixture, an ECDSASigningParty sign
+    by node0 + node1, a ResharingParty rotation from node0 + node1 to
+    node0–node2 (t=1, epoch 1) and a sign by node1 + node2. Both
+    signatures verified on the host against the keygen's public key."""
+    import hashlib
+
+    from mpcium_tpu_torch.cluster import load_test_preparams
+    from mpcium_tpu_torch.core import hostmath as hm
+    from mpcium_tpu_torch.protocol.ecdsa.keygen import ECDSAKeygenParty
+    from mpcium_tpu_torch.protocol.ecdsa.signing import ECDSASigningParty
+    from mpcium_tpu_torch.protocol.resharing import ResharingParty
+    from mpcium_tpu_torch.protocol.runner import run_protocol
+    from mpcium_tpu_torch.utils.rng import SeededStream
+
+    pre = load_test_preparams(2048)
+    sid, s0 = f"chip-session-{seed}-{w}", 1000 * seed + 100 * w
+    walls: dict = {}
+
+    def timed(name, parties):
+        t0 = time.perf_counter()
+        run_protocol(parties)
+        walls[name] = time.perf_counter() - t0
+        return {pid: p.result for pid, p in parties.items()}
+
+    shares = timed("keygen_s", {pid: ECDSAKeygenParty(f"{sid}-kg", pid, UNIVERSE, 1, pre[pid],
+                                                      rng=SeededStream(s0 + i))
+                                for i, pid in enumerate(UNIVERSE)})
+    pub = hm.secp_decompress(shares["node0"].public_key)
+
+    def sign(tag, quorum, held, k):
+        digest = int.from_bytes(hashlib.sha256(f"{sid}-{tag}".encode()).digest(), "big")
+        res = timed(f"{tag}_s", {pid: ECDSASigningParty(f"{sid}-{tag}", pid, quorum, held[pid],
+                                                        digest, rng=SeededStream(s0 + k + i))
+                                 for i, pid in enumerate(quorum)})
+        sig = res[quorum[0]]
+        return {"quorum": quorum, "r": hex(sig["r"]), "s": hex(sig["s"]),
+                "parties_agree": all(r == sig for r in res.values()),
+                "verified": hm.ecdsa_verify(pub, digest % hm.SECP_N, sig["r"], sig["s"])}
+
+    first = sign("sign", ["node0", "node1"], shares, 10)
+    old = ["node0", "node1"]
+    new = timed("reshare_s", {
+        pid: ResharingParty(f"{sid}-rs", pid, "secp256k1", old, UNIVERSE, 1,
+                            old_share=shares[pid] if pid in old else None, preparams=pre[pid],
+                            old_public_key=shares["node0"].public_key,
+                            old_vss_commitments=shares["node0"].vss_commitments,
+                            rng=SeededStream(s0 + 20 + i))
+        for i, pid in enumerate(UNIVERSE)})
+    second = sign("sign_after_reshare", ["node1", "node2"], new, 30)
+    return {"wallet": w, "walls_s": walls, "signatures": [first, second],
+            "kept_at_epoch_1": all(s.public_key == shares["node0"].public_key and s.epoch == 1
+                                   for s in new.values()),
+            "epoch1_shares": {pid: s.to_json() for pid, s in new.items()}}
+
+
+def start_session_ecdsa(seed: int):
+    """Submit the SESSION_W wallet tasks to a spawned pool of their own,
+    niced so the main process's host work keeps priority; the GPU phases
+    run while they do."""
+    global _SESSION_POOL
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    _SESSION_POOL = ProcessPoolExecutor(max_workers=SESSION_W, initializer=os.nice,
+                                        initargs=(10,),
+                                        mp_context=multiprocessing.get_context("spawn"))
+    return [_SESSION_POOL.submit(_session_wallet, w, seed) for w in range(SESSION_W)], \
+        time.perf_counter()
+
+
+def join_session_ecdsa(futures, t_submit: float) -> list:
+    """Wait for the wallet tasks → their records; the phase fails unless
+    every signature verified and every rotation kept its key."""
+    t0 = time.perf_counter()
+    recs = [f.result() for f in futures]
+    wait_s = time.perf_counter() - t0
+    _SESSION_POOL.shutdown()
+    ok = all(r["kept_at_epoch_1"] and all(s["verified"] and s["parties_agree"]
+                                          for s in r["signatures"]) for r in recs)
+    emit({"phase": "session_ecdsa", "wallets": SESSION_W, "scheme": "2-of-3 secp256k1 GG18",
+          "fixture": "test_preparams.json (2048-bit)", "overlapped": True,
+          "join_wait_s": wait_s, "since_submit_s": time.perf_counter() - t_submit,
+          "walls_s": [r["walls_s"] for r in recs],
+          "verified": sum(s["verified"] for r in recs for s in r["signatures"]),
+          "kept_at_epoch_1": all(r["kept_at_epoch_1"] for r in recs)})
+    if not ok:
+        raise AssertionError("session ECDSA: a signature failed or a rotation moved a key")
+    return recs
+
+
+def run_session_batch_sign(recs, seed: int, K, dev: str = "cuda") -> dict:
+    """The per-session epoch-1 wallets signed as one batch by node1 and
+    node2 with BatchedECDSASigningParty (full Domains()), K0's counters
+    zeroed just before: both entries launch, no plain version runs."""
+    import numpy as np
+
+    from mpcium_tpu_torch.protocol.base import KeygenShare
+    from mpcium_tpu_torch.protocol.ecdsa.batch_signing import quorum_material_digest
+    from mpcium_tpu_torch.protocol.runner import run_protocol
+
+    quorum = ["node1", "node2"]
+    shares = {pid: [KeygenShare.from_json(r["epoch1_shares"][pid]) for r in recs]
+              for pid in UNIVERSE}
+    # the scheduler's admission test: one non-empty material digest
+    material = {pid: sorted({quorum_material_digest(s) for s in shares[pid]}) for pid in quorum}
+    admitted = all(len(d) == 1 and d[0] != "" for d in material.values())
+    if not admitted:
+        raise AssertionError(f"per-session wallets differ in material: {material}")
+    digests = [r.tobytes() for r in np.random.default_rng(seed + 110).integers(
+        0, 256, (len(recs), 32), dtype=np.uint8)]
+    out, k0 = _party_sign(f"chip-session-batch-{seed}", quorum, shares, digests, seed + 111, K,
+                          run_protocol, dev)
+    emit({"phase": "session_batch_sign", "B": len(recs), "domains": "Domains()",
+          "cohorts": COHORTS, "material_digest_equal": admitted, **out})
+    if not k0["launches"] or not k0["mulmod_by_width"] or not k0["powmod_by_mode_width"]:
+        raise AssertionError(f"the batched sign of per-session wallets missed K0: {k0}")
+    if k0["plain_calls"]:
+        raise AssertionError(f"a plain version ran {k0['plain_calls']}x on the card")
+    return k0
+
+
+def run_session_eddsa(seed: int, dev: str = "cuda") -> None:
+    """SESSION_ED_W ed25519 wallets by EDDSAKeygenParty (2-of-3), each
+    signed per session with the challenge on hashlib and on the card's
+    SHA-512 (equal bytes), SESSION_ED_ROTATE of them rotated by
+    ResharingParty and signed again, all of them signed as one batch by
+    BatchedEDDSASigningParty on the card, and the JAX party golden
+    replayed with the device hash on."""
+    import numpy as np
+
+    from mpcium_tpu_torch.protocol.eddsa.batch_signing import BatchedEDDSASigningParty
+    from mpcium_tpu_torch.protocol.eddsa.keygen import EDDSAKeygenParty
+    from mpcium_tpu_torch.protocol.eddsa.signing import ENV_DEVICE_HASH, EDDSASigningParty
+    from mpcium_tpu_torch.protocol.resharing import ResharingParty
+    from mpcium_tpu_torch.protocol.runner import run_protocol
+    from mpcium_tpu_torch.utils import session_golden as sgo
+    from mpcium_tpu_torch.utils.rng import SeededStream
+
+    sid, W, s0 = f"chip-session-eddsa-{seed}", SESSION_ED_W, 100_000 * seed
+    walls: dict = {}
+
+    def runs(name, make_all):
+        t0 = time.perf_counter()
+        out = []
+        for parties in make_all():
+            run_protocol(parties)
+            out.append({pid: p.result for pid, p in parties.items()})
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    wallets = runs("keygen_s", lambda: (
+        {pid: EDDSAKeygenParty(f"{sid}-kg-{w}", pid, UNIVERSE, 1, rng=SeededStream(s0 + 10 * w + i))
+         for i, pid in enumerate(UNIVERSE)} for w in range(W)))
+    msgs = [r.tobytes() for r in np.random.default_rng(seed + 120).integers(
+        0, 256, (W, 32), dtype=np.uint8)]
+
+    def sign_each(name, quorum, held, which, device_hash: bool, s1: int):
+        os.environ[ENV_DEVICE_HASH] = "1" if device_hash else "0"
+        try:
+            res = runs(name, lambda: (
+                {pid: EDDSASigningParty(f"{sid}-sign-{w}", pid, quorum, held[w][pid], msgs[w],
+                                        rng=SeededStream(s1 + 10 * w + i), device=dev)
+                 for i, pid in enumerate(quorum)} for w in which))
+        finally:
+            os.environ.pop(ENV_DEVICE_HASH, None)
+        if any(len(set(r.values())) != 1 for r in res):
+            raise AssertionError(f"session EdDSA {name}: the signers disagree")
+        return [r[quorum[0]] for r in res]
+
+    every = range(W)
+    pubs = [wl["node0"].public_key for wl in wallets]
+    host_sigs = sign_each("sign_hashlib_s", ["node0", "node1"], wallets, every, False, s0 + 5000)
+    dev_sigs = sign_each("sign_device_hash_s", ["node0", "node1"], wallets, every, True,
+                         s0 + 5000)
+    rotated = list(range(SESSION_ED_ROTATE))
+    old = ["node0", "node1"]
+    new = runs("reshare_s", lambda: (
+        {pid: ResharingParty(f"{sid}-rs-{w}", pid, "ed25519", old, UNIVERSE, 1,
+                             old_share=wallets[w][pid] if pid in old else None,
+                             old_public_key=pubs[w],
+                             old_vss_commitments=wallets[w]["node0"].vss_commitments,
+                             rng=SeededStream(s0 + 8000 + 10 * w + i))
+         for i, pid in enumerate(UNIVERSE)} for w in rotated))
+    current = [dict(wl) for wl in wallets]
+    for w, shares in zip(rotated, new):
+        current[w] = shares
+    rot_sigs = sign_each("sign_after_reshare_s", ["node1", "node2"], current, rotated, True,
+                         s0 + 7000)
+    quorum = ["node0", "node2"]
+    batch = {pid: BatchedEDDSASigningParty(f"{sid}-batch", pid, quorum,
+                                           [c[pid] for c in current], msgs,
+                                           rng=SeededStream(s0 + 9000 + i), cohorts=COHORTS,
+                                           device=dev)
+             for i, pid in enumerate(quorum)}
+    batch_s, _rounds, _phases = _traced(batch, run_protocol, dev)
+    res = [batch[p].result for p in quorum]
+    batch_ok = all(bool(r["ok"].all()) for r in res) and \
+        bool(np.array_equal(res[0]["signatures"], res[1]["signatures"]))
+    os.environ[ENV_DEVICE_HASH] = "1"
+    try:
+        t0 = time.perf_counter()
+        got = sgo.eddsa_record(EDDSAKeygenParty, EDDSASigningParty, ResharingParty,
+                               restore=True, device=dev)
+        walls["golden_s"] = time.perf_counter() - t0
+    finally:
+        os.environ.pop(ENV_DEVICE_HASH, None)
+    want = json.loads((GOLDENS / "session_eddsa.json").read_text())["record"]
+    t0 = time.perf_counter()
+    verified = {
+        "hashlib": verify_ed25519(pubs, msgs, host_sigs),
+        "device_hash": verify_ed25519(pubs, msgs, dev_sigs),
+        "after_reshare": verify_ed25519([pubs[w] for w in rotated], [msgs[w] for w in rotated],
+                                        rot_sigs),
+        "batched": verify_ed25519(pubs, msgs, res[0]["signatures"]),
+    }
+    kept = all(s.public_key == pubs[w] and s.epoch == 1 for w, shares in zip(rotated, new)
+               for s in shares.values())
+    out = {"phase": "session_eddsa", "wallets": W, "rotated": len(rotated),
+           "walls_s": walls, "batched_sign_s": batch_s,
+           "device_hash_equals_hashlib": host_sigs == dev_sigs, "verified": verified,
+           "kept_at_epoch_1": kept, "batch_ok_all": batch_ok,
+           "matches_jax_golden": got == want, "host_verify_s": time.perf_counter() - t0}
+    emit(out)
+    expected = {"hashlib": W, "device_hash": W, "after_reshare": len(rotated), "batched": W}
+    if not (out["device_hash_equals_hashlib"] and verified == expected and kept and batch_ok
+            and out["matches_jax_golden"]):
+        raise AssertionError(f"session EdDSA failed: {out}")
+
+
 def main() -> int:
     t_script = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1339,6 +1613,7 @@ def main() -> int:
     from mpcium_tpu_torch.ops import mulmod as K
 
     card = smi()
+    session_futures, t_submit = start_session_ecdsa(args.seed)
     t0 = time.perf_counter()
     K.build()
     build_s = time.perf_counter() - t0
@@ -1378,6 +1653,9 @@ def main() -> int:
     run_reshare_engine(RESHARE_B, args.seed, dkg_shares, K)
     life = run_wallet_lifecycle(LIFECYCLE_B, args.seed, K)
     run_eddsa_dkg(LIFECYCLE_B, args.seed, K)
+    run_session_eddsa(args.seed)
+    session = join_session_ecdsa(session_futures, t_submit)
+    run_session_batch_sign(session, args.seed, K)
     emit({"phase": "wall", "script_s": time.perf_counter() - t_script,
           "note": "from the start of main() to here"})
 
@@ -1424,6 +1702,7 @@ if __name__ == "__main__":
     try:
         rc = main()
     finally:
-        if _POOL is not None:
-            _POOL.shutdown(cancel_futures=True)
+        for pool in (_POOL, _SESSION_POOL):
+            if pool is not None:
+                pool.shutdown(cancel_futures=True)
     sys.exit(rc)

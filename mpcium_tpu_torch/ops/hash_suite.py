@@ -33,6 +33,8 @@ from typing import List
 import numpy as np
 import torch
 
+from ..device import resolve
+
 _M32 = 0xFFFFFFFF
 
 
@@ -212,6 +214,14 @@ def sha512_core(data: torch.Tensor, msg_len: int) -> torch.Tensor:
 def sha512(data: torch.Tensor) -> torch.Tensor:
     """Batched SHA-512 over the last axis: (..., L) uint8 → (..., 64)."""
     return sha512_core(data, data.shape[-1])
+
+
+def sha512_bytes(data: bytes, device=None) -> bytes:
+    """One message's SHA-512 through the batched :func:`sha512` on
+    ``device`` (None: the GPU, raising when there is none) → 64 digest
+    bytes. The per-session EdDSA party routes its RFC 8032 challenge
+    here under ``MPCIUM_EDDSA_DEVICE_HASH_SESSION=1``."""
+    return bytes(sha512(as_bytes(data, resolve(device))).cpu().numpy())
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Protocol plumbing: the durable keygen share, the Shamir x-coordinate
-map, round messages and the party base class (the port's copies of the
-JAX package's ``protocol/base.py`` definitions, same JSON form).
+map, round messages, the snapshot codec and the party base class (the
+port's copies of the JAX package's ``protocol/base.py`` definitions,
+same JSON form).
 
 A party consumes and produces :class:`RoundMsg` values; routing lives in
 higher layers, so the protocol runs transport-free and deterministic
@@ -42,6 +43,110 @@ class RoundMsg:
     @property
     def is_broadcast(self) -> bool:
         return self.to is None
+
+
+# ---------------------------------------------------------------------------
+# snapshot codec (crash-recoverable sessions)
+#
+# Party state mixes JSON-safe payload dicts (the inbox) with protocol
+# secrets: python ints, bytes, curve points, Paillier and MtA objects. A
+# snapshot carries all of it through JSON with explicit tags. Every plain
+# dict becomes a ``{"__d": [[k, v], ...]}`` pair list, so a payload dict
+# is never mistaken for a tag and non-string keys survive (Shamir share
+# maps are keyed by int x-coordinates). The tags and the registered type
+# names are the JAX package's, so a snapshot reads the same in both.
+# ---------------------------------------------------------------------------
+
+_SNAP_TYPES: Dict[str, tuple] = {}  # name -> (cls, encode_fn, decode_fn)
+
+
+def register_snap_type(name: str, cls, enc, dec) -> None:
+    """Register a type for party snapshots: ``enc`` maps an instance to a
+    JSON-safe value, ``dec`` inverts it."""
+    _SNAP_TYPES[name] = (cls, enc, dec)
+
+
+def _ensure_snap_types() -> None:
+    """Register the crypto types the parties store, on first use: the
+    MtA module imports zk, which imports Paillier, so registering them at
+    import would make ``protocol.base`` part of an import cycle."""
+    if "edpoint" in _SNAP_TYPES:
+        return
+    from ..core import hostmath as hm
+    from ..core.paillier import PaillierPublicKey, PreParams
+    from .ecdsa.mta import MtaInit, MtaResp
+
+    register_snap_type(
+        "edpoint", hm.EdPoint,
+        lambda p: hm.ed_compress(p).hex(),
+        lambda v: hm.ed_decompress(bytes.fromhex(v)),
+    )
+    register_snap_type(
+        "secppoint", hm.SecpPoint,
+        lambda p: "" if p.is_infinity else hm.secp_compress(p).hex(),
+        lambda v: hm.SECP_INF if v == "" else hm.secp_decompress(bytes.fromhex(v)),
+    )
+    register_snap_type(
+        "paillier_pk", PaillierPublicKey,
+        lambda pk: str(pk.N),
+        lambda v: PaillierPublicKey(int(v)),
+    )
+    # a restarted node draws DIFFERENT preparams from its pool: a party
+    # mid-keygen resumes with the material its round 1 committed to
+    register_snap_type("preparams", PreParams, lambda p: p.to_json(), PreParams.from_json)
+    register_snap_type("keygen_share", KeygenShare, lambda s: s.to_json(),
+                       KeygenShare.from_json)
+    register_snap_type("mta_init", MtaInit, lambda m: m.to_json(), MtaInit.from_json)
+    register_snap_type("mta_resp", MtaResp, lambda m: m.to_json(), MtaResp.from_json)
+
+
+def snap_encode(v: Any) -> Any:
+    """Party state → JSON-safe tagged value (see the comment above)."""
+    if v is None or isinstance(v, (bool, str, float)):
+        return v
+    if isinstance(v, int):
+        return {"__i": str(v)}
+    if isinstance(v, (bytes, bytearray)):
+        return {"__b": bytes(v).hex()}
+    if isinstance(v, list):
+        return [snap_encode(x) for x in v]
+    if isinstance(v, tuple):
+        return {"__t": [snap_encode(x) for x in v]}
+    if isinstance(v, dict):
+        return {"__d": [[snap_encode(k), snap_encode(x)] for k, x in v.items()]}
+    _ensure_snap_types()
+    for name, (cls, enc, _dec) in _SNAP_TYPES.items():
+        if isinstance(v, cls):
+            return {"__o": [name, enc(v)]}
+    raise TypeError(f"snapshot cannot encode {type(v).__name__}")
+
+
+def snap_decode(v: Any) -> Any:
+    if v is None or isinstance(v, (bool, str, float)):
+        return v
+    if isinstance(v, list):
+        return [snap_decode(x) for x in v]
+    if isinstance(v, dict):
+        if "__i" in v:
+            return int(v["__i"])
+        if "__b" in v:
+            return bytes.fromhex(v["__b"])
+        if "__t" in v:
+            return tuple(snap_decode(x) for x in v["__t"])
+        if "__d" in v:
+            return {snap_decode(k): snap_decode(x) for k, x in v["__d"]}
+        if "__o" in v:
+            name, payload = v["__o"]
+            _ensure_snap_types()
+            if name not in _SNAP_TYPES:
+                raise TypeError(f"snapshot references unknown type {name!r}")
+            return _SNAP_TYPES[name][2](payload)
+    # structure only: a snapshot holds share material, and the value's
+    # repr must never reach an exception message
+    tags = sorted(v) if isinstance(v, dict) else ()
+    raise TypeError(
+        f"snapshot cannot decode value of type {type(v).__name__} (tags: {list(tags)})"
+    )
 
 
 def party_xs(party_ids: Sequence[str]) -> Dict[str, int]:
@@ -141,6 +246,52 @@ class PartyBase:
 
     def _round_payloads(self, round_name: str) -> Dict[str, Dict[str, Any]]:
         return self._inbox.get(round_name, {})
+
+    # -- crash-recovery snapshots -------------------------------------------
+    #
+    # ``snapshot()`` captures the party's message-driven state: the inbox
+    # plus every attribute named in ``_SNAP_EXTRA`` (the protocol's
+    # secrets — nonces, Shamir coefficients, commitments — whose loss
+    # would change the transcript on resume). ``restore()`` puts it onto a
+    # fresh party built with the same constructor arguments. Attributes
+    # not made yet (rounds not reached) are absent and stay absent.
+
+    _SNAP_EXTRA: Sequence[str] = ()
+
+    def snapshot(self) -> Dict[str, Any]:
+        extra = {}
+        for name in self._SNAP_EXTRA:
+            if hasattr(self, name):
+                extra[name] = snap_encode(getattr(self, name))
+        return {
+            "v": 1,
+            "protocol": type(self).__name__,
+            "session_id": self.session_id,
+            "done": self.done,
+            "result": snap_encode(self.result),
+            "inbox": snap_encode(self._inbox),
+            "extra": extra,
+        }
+
+    def restore(self, snap: Dict[str, Any]) -> None:
+        if snap.get("protocol") != type(self).__name__:
+            raise ProtocolError(
+                f"snapshot for {snap.get('protocol')!r} restored into {type(self).__name__}"
+            )
+        if snap.get("session_id") != self.session_id:
+            raise ProtocolError(
+                f"snapshot for session {snap.get('session_id')!r} restored into "
+                f"{self.session_id!r}"
+            )
+        self._inbox = snap_decode(snap["inbox"])
+        for name, v in snap.get("extra", {}).items():
+            setattr(self, name, snap_decode(v))
+        self.done = bool(snap.get("done", False))
+        self.result = snap_decode(snap.get("result"))
+        self._post_restore()
+
+    def _post_restore(self) -> None:
+        """Recompute derived (unserialized) state; a per-protocol hook."""
 
     # -- helpers ------------------------------------------------------------
 

@@ -1,2 +1,3 @@
-"""ECDSA protocol pieces of the port: the OT-MtA backend, the batched
-GG18 signing party and the proofs its keygen material carries."""
+"""ECDSA protocol pieces of the port: the per-session GG18 keygen and
+signing parties with the host MtA and proofs, the OT-MtA backend, and
+the batched GG18 signing party."""

@@ -1,1 +1,2 @@
-"""EdDSA protocol pieces of the port (the batched signing party)."""
+"""EdDSA protocol pieces of the port: the per-session keygen and signing
+parties and the batched signing party."""

@@ -23,6 +23,7 @@ if __name__ == "__main__":  # as a script: the repo root on the path, JAX on the
 
 import numpy as np
 import pytest
+from torch_golden_writer import pipe_host_down  # noqa: F401  (stops pipe-host at module end)
 import torch
 
 import jax

@@ -10,6 +10,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_golden_writer import pipe_host_down  # noqa: F401  (stops pipe-host at module end)
 import torch
 
 from mpcium_tpu_torch.core import hostmath as hm

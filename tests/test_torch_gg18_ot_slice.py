@@ -20,6 +20,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_golden_writer import pipe_host_down  # noqa: F401  (stops pipe-host at module end)
 import torch
 
 torch.set_num_threads(1)  # tiny float64 matmuls: threads only contend

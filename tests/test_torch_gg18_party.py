@@ -22,6 +22,7 @@ from pathlib import Path
 import pytest
 import torch
 import torch_golden_writer as gw
+from torch_golden_writer import pipe_host_down  # noqa: F401  (stops pipe-host at module end)
 
 torch.set_num_threads(1)  # tiny float64 matmuls: threads only contend
 
