@@ -1,0 +1,112 @@
+"""Client SDK (reference pkg/client — the external initiator process).
+
+`MPCClient`: signs commands with the initiator Ed25519 key and publishes
+them to the cluster; consumes result queues for callbacks (client.go:28-37):
+
+  create_wallet     → ``mpc:generate``           (ephemeral fan-out)
+  sign_transaction  → durable signing queue      (at-least-once)
+  resharing         → ``mpc:reshare``
+  on_wallet_creation_result / on_sign_result / on_resharing_result
+"""
+from __future__ import annotations
+
+import json
+from typing import Callable, Optional
+
+from .. import wire
+from ..identity.identity import InitiatorKey
+from ..transport.api import Transport
+from ..utils import log
+
+
+def _result_topic(base: str, scope_id: Optional[str]) -> str:
+    """Result topics are per-wallet/per-tx (``base.{id}``); a scoped
+    subscription sees only its own result, the wildcard sees all."""
+    return f"{base}.{scope_id}" if scope_id is not None else f"{base}.*"
+
+
+class MPCClient:
+    def __init__(self, transport: Transport, initiator: InitiatorKey):
+        self.transport = transport
+        self.initiator = initiator
+
+    # -- commands -----------------------------------------------------------
+
+    def create_wallet(self, wallet_id: str) -> None:
+        msg = wire.GenerateKeyMessage(wallet_id=wallet_id)
+        msg.signature = self.initiator.sign(msg.raw())
+        self.transport.pubsub.publish(
+            wire.TOPIC_GENERATE, wire.canonical_json(msg.to_json())
+        )
+        log.info("wallet creation requested", wallet=wallet_id)
+
+    def sign_transaction(self, msg: wire.SignTxMessage) -> None:
+        msg.signature = self.initiator.sign(msg.raw())
+        self.transport.queues.enqueue(
+            wire.TOPIC_SIGNING_REQUEST,
+            wire.canonical_json(msg.to_json()),
+            idempotency_key=msg.tx_id,
+        )
+        log.info("signing requested", wallet=msg.wallet_id, tx=msg.tx_id)
+
+    def resharing(self, wallet_id: str, new_threshold: int, key_type: str,
+                  deadline_ms: int = 0,
+                  priority: str = wire.PRIORITY_BULK) -> None:
+        msg = wire.ResharingMessage(
+            wallet_id=wallet_id, new_threshold=new_threshold,
+            key_type=key_type, deadline_ms=deadline_ms, priority=priority,
+        )
+        msg.signature = self.initiator.sign(msg.raw())
+        self.transport.pubsub.publish(
+            wire.TOPIC_RESHARE, wire.canonical_json(msg.to_json())
+        )
+        log.info("resharing requested", wallet=wallet_id, key_type=key_type)
+
+    # -- results ------------------------------------------------------------
+
+    def on_wallet_creation_result(
+        self,
+        handler: Callable[[wire.KeygenSuccessEvent], None],
+        wallet_id: str | None = None,
+    ):
+        """Subscribe to keygen results. Results are published to per-wallet
+        topics (TOPIC_KEYGEN_RESULT.{wallet_id}); passing ``wallet_id``
+        narrows the work-queue subscription to that wallet, so concurrent
+        clients on one broker can't steal (and eventually dead-letter)
+        each other's results via round-robin delivery."""
+        return self.transport.queues.dequeue(
+            _result_topic(wire.TOPIC_KEYGEN_RESULT, wallet_id),
+            lambda raw: handler(
+                wire.KeygenSuccessEvent.from_json(json.loads(raw))
+            ),
+        )
+
+    def on_sign_result(
+        self,
+        handler: Callable[[wire.SigningResultEvent], None],
+        tx_id: str | None = None,
+    ):
+        """Subscribe to signing results. Like keygen/resharing, results
+        land on per-tx topics (TOPIC_SIGNING_RESULT.{tx_id}); passing
+        ``tx_id`` scopes the work-queue subscription so concurrent
+        clients can't round-robin-steal each other's results."""
+        return self.transport.queues.dequeue(
+            _result_topic(wire.TOPIC_SIGNING_RESULT, tx_id),
+            lambda raw: handler(
+                wire.SigningResultEvent.from_json(json.loads(raw))
+            ),
+        )
+
+    def on_resharing_result(
+        self,
+        handler: Callable[[wire.ResharingSuccessEvent], None],
+        wallet_id: str | None = None,
+    ):
+        """Subscribe to resharing results; ``wallet_id`` narrows to that
+        wallet's topic (see :meth:`on_wallet_creation_result`)."""
+        return self.transport.queues.dequeue(
+            _result_topic(wire.TOPIC_RESHARING_RESULT, wallet_id),
+            lambda raw: handler(
+                wire.ResharingSuccessEvent.from_json(json.loads(raw))
+            ),
+        )

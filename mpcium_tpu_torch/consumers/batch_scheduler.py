@@ -1,0 +1,1924 @@
+"""The batch scheduler: coalesce concurrent signing requests into
+fixed-shape engine dispatches (SURVEY.md §7.2 step 5). The port's copy
+of the JAX package's ``consumers/batch_scheduler.py``: every batched
+party it builds (DKG, reshare, GG18 and EdDSA signing) computes on the
+scheduler's ``device`` — ``None`` means the GPU and raises when there is
+none; nothing here moves a batch to the CPU on its own.
+
+The reference spawns one goroutine-backed session per signing request
+(event_consumer.go:295-338); here concurrent ed25519 requests are BUCKETED
+by (participant set, threshold, epoch), padded into one batch, and signed
+by ONE protocol instance whose per-round compute is one engine dispatch
+(protocol.eddsa.batch_signing). Per-session results demux back through the
+normal result queues / reply inboxes.
+
+Batch composition must be identical on every quorum member, so one member
+is the MANIFEST LEADER — the lexicographically-smallest participant the
+local registry sees as LIVE (rank-based: no election protocol; the
+registry's liveness view is the election). The leader buffers requests
+for ``window_s`` (or until ``max_batch``), then broadcasts a manifest
+listing the batch, **signed with its node identity**; receivers verify
+the leader signature, that the leader is a topology member, and —
+because the leader is otherwise untrusted for content — every entry's
+ORIGINAL initiator signature. Requests stay buffered on EVERY member
+(leader included) until a manifest covers them. Escalation when no
+manifest arrives (one bucket-level timer, not one per request): at
+``manifest_timeout_s`` the DEPUTY — the next-smallest live member —
+re-fires the entries under its own manifest (no throughput cliff when
+the leader dies); at twice that, surviving entries fall back to the
+per-session signing path. Registry-view skew can at worst produce two
+manifests for one request — redundant idempotent work, never a drop.
+
+Both curves batch: ed25519 via protocol.eddsa.batch_signing (3 rounds)
+and secp256k1 via protocol.ecdsa.batch_signing (distributed GG18, 9
+rounds on the engine kernels). ECDSA buckets additionally key on the
+quorum's Paillier/ring-Pedersen material digest so one batch maps to one
+modulus-context set; wallets with no GG18 aux material (never produced by
+this framework's keygen) fall back to the per-session path.
+
+SLO-aware continuous batching: every entry carries a DEADLINE (from the
+request's ``deadline_ms`` or the config default) and a LANE (interactive
+or bulk, from the request's ``priority``). Dispatch is continuous — a
+bucket fires whenever ``max_batch`` entries are buffered OR the oldest
+entry reaches ``window_s`` — and batches fill interactive-lane-first,
+oldest-deadline-first. All timing (windows, liveness fallbacks, decline
+expiries, deadline sweeps) runs on ONE timing-wheel thread, so a million
+buffered wallets costs one thread, not thousands of ``threading.Timer``s.
+Intake is BOUNDED: past ``max_queue_depth`` buffered entries, a submit is
+refused honestly — a *retryable* error event is published, the reply inbox
+gets ERR, the dedup claim is released, and a shed counter ticks; nothing
+is ever dropped silently. A buffered entry whose deadline expires before
+a manifest covers it is shed the same way (the deputy never re-fires an
+already-expired entry). Everything is observable through a
+``utils.metrics.MetricsRegistry``: per-lane queue depth, batch fill
+ratio, dispatch age, shed/takeover/fallback counts, end-to-end latency.
+"""
+from __future__ import annotations
+
+import heapq
+import itertools
+import json
+import secrets
+import threading
+import time
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Tuple
+
+from .. import wire
+from ..device import DeviceLike, resolve
+from ..engine.buckets import floor_bucket
+from ..engine.pipeline import resolve_cohorts
+from ..node.node import Node, NotEnoughParticipants
+from ..node.session import Session
+from ..protocol.base import KeygenShare, ProtocolError
+from ..protocol.eddsa.batch_signing import BatchedEDDSASigningParty
+from ..transport.api import Transport
+from ..utils import log, tracing
+from ..utils.annotations import locked_by
+from ..utils.metrics import MetricsRegistry
+
+_DIGEST_CACHE_CAP = 4096  # (key_type, wallet, epoch) -> material digest LRU
+_INTAKE_TS_CAP = 1 << 18  # e2e-latency bookkeeping bound (entries, not bytes)
+# late-duplicate absorption window after a sign batch settles: must
+# outlast the transport's redelivery backoff for a chaos-dropped intake
+_SETTLED_TTL_S = 30.0
+_SETTLED_CAP = 4096
+
+
+class _TimingWheel:
+    """One daemon thread serving every scheduler timer.
+
+    ``schedule(key, delay, fn)`` arms (or re-arms, replacing) a named
+    timer; ``cancel(key)`` disarms it. Internally a heap of
+    (fire_at, seq, key) with a per-key generation dict so replaced or
+    cancelled entries are skipped lazily — no heap surgery on the hot
+    path. Callbacks run on the wheel thread and must not block: every
+    scheduler callback either grabs the scheduler lock briefly or hands
+    real work to a batch thread.
+    """
+
+    def __init__(self, name: str = "timing-wheel") -> None:
+        self._cond = threading.Condition()
+        self._heap: List[Tuple[float, int, object]] = []
+        self._armed: Dict[object, Tuple[int, Callable[[], None]]] = {}
+        self._seq = itertools.count()
+        self._closed = False
+        self._thread = threading.Thread(
+            target=self._run, name=name, daemon=True
+        )
+        self._thread.start()
+
+    def schedule(self, key, delay_s: float, fn: Callable[[], None]) -> None:
+        fire_at = time.monotonic() + max(0.0, delay_s)
+        with self._cond:
+            if self._closed:
+                return
+            seq = next(self._seq)
+            self._armed[key] = (seq, fn)
+            heapq.heappush(self._heap, (fire_at, seq, key))
+            self._cond.notify()
+
+    def schedule_if_absent(
+        self, key, delay_s: float, fn: Callable[[], None]
+    ) -> bool:
+        with self._cond:
+            if self._closed or key in self._armed:
+                return False
+        self.schedule(key, delay_s, fn)
+        return True
+
+    def cancel(self, key) -> None:
+        with self._cond:
+            self._armed.pop(key, None)
+
+    def contains(self, key) -> bool:
+        with self._cond:
+            return key in self._armed
+
+    def close(self) -> None:
+        with self._cond:
+            self._closed = True
+            self._armed.clear()
+            self._heap.clear()
+            self._cond.notify()
+        if self._thread is not threading.current_thread():
+            self._thread.join(timeout=5.0)
+
+    def _run(self) -> None:
+        while True:
+            with self._cond:
+                if self._closed:
+                    return
+                now = time.monotonic()
+                fn = None
+                if self._heap:
+                    fire_at, seq, key = self._heap[0]
+                    armed = self._armed.get(key)
+                    if armed is None or armed[0] != seq:
+                        heapq.heappop(self._heap)  # replaced/cancelled
+                        continue
+                    if fire_at <= now:
+                        heapq.heappop(self._heap)
+                        del self._armed[key]
+                        fn = armed[1]
+                    else:
+                        self._cond.wait(fire_at - now)
+                        continue
+                else:
+                    self._cond.wait()
+                    continue
+            try:
+                fn()
+            except Exception as e:  # noqa: BLE001
+                log.error("timing-wheel callback crashed", error=repr(e))
+
+
+@dataclass
+class _Entry:
+    msg: object  # SignTxMessage ("sign") or GenerateKeyMessage ("kg")
+    reply_topic: str
+    added_at: float = field(default_factory=time.monotonic)
+    fired: bool = False  # leader: already covered by a published manifest
+    kind: str = "sign"
+    took_over: bool = False  # deputy already re-fired this entry once
+    # SLO lane + absolute deadline (monotonic clock). inf = no deadline,
+    # which keeps every legacy positional construction un-sheddable.
+    deadline_at: float = float("inf")
+    lane: str = wire.PRIORITY_BULK
+
+    def fill_rank(self) -> Tuple[int, float, float]:
+        """Batch-fill order: interactive lane first, then oldest deadline,
+        then arrival."""
+        return (
+            0 if self.lane == wire.PRIORITY_INTERACTIVE else 1,
+            self.deadline_at,
+            self.added_at,
+        )
+
+
+def _key_participants(key: Tuple) -> Tuple:
+    """The candidate-leader set encoded in a bucket key (see the three
+    submit paths for the key shapes)."""
+    if key[0] == "kg":
+        return key[1]
+    if key[0] == "rs":
+        return key[2]
+    return key[0]
+
+
+def _bucket_key(info) -> Tuple:
+    return (tuple(info.participant_peer_ids), info.threshold, info.epoch)
+
+
+def _entry_key(kind: str, msg) -> Tuple[str, str]:
+    """The (wallet, tx) identity used for claims and manifest coverage;
+    keygen/reshare requests have no tx axis."""
+    if kind == "kg":
+        return (msg.wallet_id, "")
+    if kind == "rs":
+        return (f"{msg.key_type}:{msg.wallet_id}", "")
+    return (msg.wallet_id, msg.tx_id)
+
+
+def _manifest_body(
+    batch_id: str, leader: str, requests: List[dict], kind: str,
+    cohorts: int = 1,
+) -> bytes:
+    return wire.canonical_json(
+        {
+            "batch_id": batch_id,
+            "leader": leader,
+            "requests": requests,
+            "kind": kind,
+            "cohorts": cohorts,
+        }
+    )
+
+
+@locked_by(
+    "_lock",
+    "_buckets",
+    "_batch_claims",
+    "_live_claims",
+    "_settled",
+    "_sessions",
+    "_decline_responders",
+    "_digest_cache",
+    "_intake_ts",
+    "_depth_n",
+)
+class BatchSigningScheduler:
+    """Per-node scheduler instance (every node runs one)."""
+
+    def __init__(
+        self,
+        node: Node,
+        transport: Transport,
+        window_s: Optional[float] = None,
+        max_batch: Optional[int] = None,
+        manifest_timeout_s: Optional[float] = None,
+        default_deadline_ms: Optional[int] = None,
+        max_queue_depth: Optional[int] = None,
+        decline_cap: Optional[int] = None,
+        batch_patience_s: Optional[float] = None,
+        metrics: Optional[MetricsRegistry] = None,
+        on_fallback: Optional[Callable[[wire.SignTxMessage, str], None]] = None,
+        on_tx_done: Optional[Callable[[str, str], None]] = None,
+        on_tx_released: Optional[Callable[[str, str], None]] = None,
+        claim_tx: Optional[Callable[[str, str], bool]] = None,
+        on_fallback_keygen: Optional[Callable] = None,
+        on_kg_done: Optional[Callable[[str], None]] = None,
+        on_kg_released: Optional[Callable[[str], None]] = None,
+        claim_kg: Optional[Callable[[str], bool]] = None,
+        on_fallback_reshare: Optional[Callable] = None,
+        on_rs_done: Optional[Callable[[str, str], None]] = None,
+        on_rs_released: Optional[Callable[[str, str], None]] = None,
+        claim_rs: Optional[Callable[[str, str], bool]] = None,
+        device: DeviceLike = None,
+    ):
+        from ..config import get_config
+
+        cfg = get_config()
+        self.device = resolve(device)
+        self.node = node
+        self.transport = transport
+        # every knob: explicit argument wins, else the config value (which
+        # itself defaults to the historical constants)
+        self.window_s = window_s if window_s is not None else cfg.batch_window_s
+        self.max_batch = (
+            max_batch if max_batch is not None else cfg.batch_max_batch
+        )
+        # manifests are cut in pow-2 chunks (engine/buckets.py), the same
+        # grid as the JAX package's, so a mixed committee cuts equal
+        # batches — a non-pow-2 max_batch only lowers the cap, it never
+        # emits an off-bucket size
+        self._chunk_cap = floor_bucket(max(1, self.max_batch))
+        self.manifest_timeout_s = (
+            manifest_timeout_s
+            if manifest_timeout_s is not None
+            else cfg.batch_manifest_timeout_s
+        )
+        self.default_deadline_ms = (
+            default_deadline_ms
+            if default_deadline_ms is not None
+            else cfg.batch_deadline_ms
+        )
+        self.max_queue_depth = (
+            max_queue_depth
+            if max_queue_depth is not None
+            else cfg.batch_max_queue_depth
+        )
+        self.decline_cap = (
+            decline_cap if decline_cap is not None else cfg.batch_decline_cap
+        )
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.on_fallback = on_fallback  # per-session path (consumer wires it)
+        # lifecycle callbacks into the consumer's dedup bookkeeping
+        self.on_tx_done = on_tx_done or (lambda w, t: None)
+        self.on_tx_released = on_tx_released or (lambda w, t: None)
+        self.claim_tx = claim_tx or (lambda w, t: True)
+        self.on_fallback_keygen = on_fallback_keygen
+        self.on_kg_done = on_kg_done or (lambda w: None)
+        self.on_kg_released = on_kg_released or (lambda w: None)
+        self.claim_kg = claim_kg or (lambda w: True)
+        self.on_fallback_reshare = on_fallback_reshare
+        self.on_rs_done = on_rs_done or (lambda kt, w: None)
+        self.on_rs_released = on_rs_released or (lambda kt, w: None)
+        self.claim_rs = claim_rs or (lambda kt, w: True)
+        self._lock = threading.RLock()
+        self._buckets: Dict[Tuple, List[_Entry]] = {}
+        # dedup strings of claims owned by RUNNING batch threads, as a
+        # REFCOUNT (see owns_dedup / the consumer GC's empty-claim
+        # reaping): deputy takeover plus a late original-leader manifest
+        # can legitimately run two batch threads covering one request on
+        # one node, and the second thread's exit must not clobber the
+        # first's claim protection
+        self._batch_claims: Dict[str, int] = {}
+        # session_id -> dedup strings owned by a LIVE async batch session
+        # (sign/reshare runners hand off to a Session and return; the
+        # claims stay owned until that session's _prune)
+        self._live_claims: Dict[str, set] = {}
+        # dedup string -> monotonic settle time, SIGN ONLY: a chaos-
+        # dropped intake can be redelivered seconds after the batch that
+        # answered it finished and forgot its claims, and buffering it
+        # then strands a lane entry until the fallback sweep. Sign
+        # retries always carry a FRESH tx id, so a same-dedup arrival
+        # inside the TTL is by construction a duplicate delivery, never
+        # a retry — absorb it. (kg/rs dedup keys are wallet-scoped and
+        # ARE reused by retries, so they never enter this map.)
+        self._settled: OrderedDict[str, float] = OrderedDict()
+        # ONE timing-wheel thread serves every window, liveness fallback,
+        # deadline sweep, and decline expiry — keys ("win"|"fb"|"dl", bucket)
+        # and ("decl", session_id)
+        self._wheel = _TimingWheel(name=f"batch-wheel-{node.node_id}")
+        self._sessions: List[Session] = []
+        self.batches_run = 0  # engine-dispatch diagnostic (tests assert ≪ N)
+        # GG18 exponent domains (None = production defaults); tests with
+        # shrunk keys set this on every quorum member's scheduler
+        self.gg18_dom = None
+        # hello/unicast budgets for batch sessions: one round of a batched
+        # party can spend minutes in comb tables or DLN verification, so
+        # a busy (not gone) peer must not trip the 3x3s transport budget
+        # or the 20s hello deadline
+        self.batch_patience_s = (
+            batch_patience_s
+            if batch_patience_s is not None
+            else cfg.batch_patience_s
+        )
+        # session_id -> pubsub subscription, insertion-ordered so the cap
+        # evicts the OLDEST responder (its peers have had the longest to
+        # hear the decline); expiry timers live on the wheel
+        self._decline_responders: "OrderedDict[str, object]" = OrderedDict()
+        # secp material digests are constant per (wallet, epoch) — LRU cache
+        # so a request burst costs one share load, not one per tx, and a
+        # long-lived node serving many wallets stays bounded
+        self._digest_cache: "OrderedDict[Tuple[str, str, int], str]" = (
+            OrderedDict()
+        )
+        # intake timestamps for end-to-end latency: (kind, wallet, tx) ->
+        # monotonic submit time, popped at done/shed (bounded FIFO)
+        self._intake_ts: "OrderedDict[Tuple[str, str, str], float]" = (
+            OrderedDict()
+        )
+        self._shed_seq = itertools.count()  # distinct shed idempotency keys
+        # authoritative per-lane buffered-entry counts (under self._lock);
+        # the gauges mirror them for snapshots
+        self._depth_n: Dict[str, int] = {lane: 0 for lane in wire.PRIORITIES}
+        # per-lane depth gauges + shared counters, created eagerly so a
+        # snapshot shows zeros instead of missing series
+        m = self.metrics
+        self._m_depth = {
+            lane: m.gauge(f"scheduler.queue_depth.{lane}")
+            for lane in wire.PRIORITIES
+        }
+        self._m_submitted = m.counter("scheduler.submitted_total")
+        self._m_shed = m.counter("scheduler.shed_total")
+        self._m_shed_bp = m.counter("scheduler.shed_backpressure_total")
+        self._m_shed_dl = m.counter("scheduler.shed_deadline_total")
+        self._m_batches = m.counter("scheduler.batches_fired_total")
+        self._m_fill = m.histogram("scheduler.batch_fill_ratio")
+        self._m_age = m.histogram("scheduler.dispatch_age_s")
+        self._m_takeover = m.counter("scheduler.deputy_takeover_total")
+        self._m_fallback = m.counter("scheduler.fallback_total")
+        self._m_quarantined = m.counter("scheduler.quarantined_total")
+        self._m_repacked = m.counter("scheduler.repacked_total")
+        self._m_e2e = m.histogram("scheduler.e2e_latency_s")
+        self._m_decl_evict = m.counter("scheduler.declines_evicted_total")
+        self._sub = transport.pubsub.subscribe(
+            wire.TOPIC_BATCH_MANIFEST, self._on_manifest_raw
+        )
+        self._closed = False
+
+    def settled_size(self) -> int:
+        """Current entry count of the settled-digest TTL map — the
+        absorption window for post-dispatch redeliveries. Exposed as a
+        gauge so a leak here (entries not aging out) is visible before
+        the cap turns it into silent forgetting."""
+        with self._lock:
+            return len(self._settled)
+
+    def close(self) -> None:
+        self._closed = True
+        self._sub.unsubscribe()
+        self._wheel.close()
+        with self._lock:
+            for s in self._sessions:
+                s.close()
+            for sub in self._decline_responders.values():
+                try:
+                    sub.unsubscribe()
+                except Exception:  # noqa: BLE001
+                    pass
+            self._decline_responders.clear()
+
+    # -- request intake ------------------------------------------------------
+
+    def submit(self, msg: wire.SignTxMessage, reply_topic: str) -> bool:
+        """Buffer a verified signing request for batching. Returns False if
+        the request cannot be batched (caller should use the per-session
+        path). The caller holds the dedup claim for this tx."""
+        if msg.key_type not in (
+            wire.KEY_TYPE_ED25519, wire.KEY_TYPE_SECP256K1
+        ):
+            return False
+        info = self.node.keyinfo.get(msg.key_type, msg.wallet_id)
+        if info is None:
+            return False
+        extra: Tuple = ()
+        if msg.key_type == wire.KEY_TYPE_SECP256K1:
+            # one batch = one modulus-context set: bucket on the quorum's
+            # Paillier/ring-Pedersen material (batch_signing module doc).
+            # The digest is constant per (wallet, epoch) — cached, so a
+            # burst of txs costs one share load, not one per tx.
+            ck = (msg.key_type, msg.wallet_id, info.epoch)
+            # LOCKED read (concurrent submits on the transport pool mutate
+            # this dict) + LRU touch so hot wallets stay resident
+            with self._lock:
+                dig = self._digest_cache.get(ck)
+                if dig is not None:
+                    self._digest_cache.move_to_end(ck)
+            if dig is None:
+                from ..protocol.ecdsa.batch_signing import (
+                    quorum_material_digest,
+                )
+
+                try:
+                    share = self.node.load_share(msg.key_type, msg.wallet_id)
+                except ProtocolError:
+                    return False
+                if share.epoch != info.epoch:
+                    return False  # mid-reshare — per-session path retries
+                dig = quorum_material_digest(share)
+                # one live epoch per wallet: evict superseded epochs; the
+                # LRU cap bounds the cache even across millions of wallets
+                with self._lock:
+                    stale = [
+                        k for k in self._digest_cache
+                        if k[0] == msg.key_type and k[1] == msg.wallet_id
+                    ]
+                    for k in stale:
+                        del self._digest_cache[k]
+                    self._digest_cache[ck] = dig
+                    while len(self._digest_cache) > _DIGEST_CACHE_CAP:
+                        self._digest_cache.popitem(last=False)
+            if not dig:
+                return False  # no GG18 aux → per-session path
+            extra = (dig,)
+        key = _bucket_key(info) + (msg.key_type,) + extra
+        leader = self._acting_leader(info.participant_peer_ids)
+        return self._buffer_entry(
+            key, self._mk_entry(msg, reply_topic, "sign"), leader
+        )
+
+    def submit_keygen(self, msg: wire.GenerateKeyMessage) -> bool:
+        """Buffer a verified wallet-creation request for batched DKG
+        (engine kernels via protocol.batch_dkg, both curves). Returns False
+        when batching does not apply; the caller holds the keygen dedup
+        claim."""
+        # keygen runs over the FULL configured cluster (reference
+        # node.go:95); every node sees every request via pub/sub
+        if self.node.registry.ready_count() < len(self.node.peer_ids):
+            return False
+        key = ("kg", tuple(self.node.peer_ids), self._threshold())
+        leader = self._acting_leader(self.node.peer_ids)
+        return self._buffer_entry(key, self._mk_entry(msg, "", "kg"), leader)
+
+    def submit_reshare(self, msg: wire.ResharingMessage) -> bool:
+        """Buffer a verified resharing request for batched rotation
+        (protocol.batch_dkg.BatchedReshareParty). Wallets bucket by curve +
+        old topology + new threshold so one re-deal serves the batch."""
+        info = self.node.keyinfo.get(msg.key_type, msg.wallet_id)
+        if info is None:
+            return False
+        key = (
+            "rs", msg.key_type, tuple(info.participant_peer_ids),
+            info.threshold, info.epoch, msg.new_threshold,
+        )
+        leader = self._acting_leader(info.participant_peer_ids)
+        return self._buffer_entry(key, self._mk_entry(msg, "", "rs"), leader)
+
+    def _mk_entry(self, msg, reply_topic: str, kind: str) -> _Entry:
+        """Stamp the SLO lane + absolute deadline onto a fresh entry.
+        ``deadline_ms`` 0 on the wire means "server default"; keygen
+        commands carry no SLO fields and always take the defaults."""
+        deadline_ms = getattr(msg, "deadline_ms", 0) or self.default_deadline_ms
+        lane = getattr(msg, "priority", wire.PRIORITY_BULK)
+        if lane not in wire.PRIORITIES:
+            lane = wire.PRIORITY_BULK
+        deadline_at = (
+            time.monotonic() + deadline_ms / 1000.0
+            if deadline_ms > 0
+            else float("inf")
+        )
+        return _Entry(
+            msg, reply_topic, kind=kind, deadline_at=deadline_at, lane=lane
+        )
+
+    def _acting_leader(self, candidates) -> str:
+        """Manifest leadership is RANK-based, not static: the smallest
+        participant the local registry sees as live leads; if it dies,
+        the next-smallest takes over (at submit time when the registry
+        already knows, or via the fallback sweep's deputy escalation when
+        it finds out the hard way). Receivers verify manifest signatures
+        and content but accept any MEMBER as leader — rank only decides
+        who sends, so registry-view skew degrades to a redundant
+        (idempotent) batch instead of a dropped one."""
+        cand = sorted(candidates)
+        live = [
+            p for p in cand
+            if p == self.node.node_id or self.node.registry.is_peer_ready(p)
+        ]
+        return (live or cand)[0]
+
+    def _buffer_entry(self, key: Tuple, entry: _Entry, leader: str) -> bool:
+        """Shared intake: depth-bounded append to the bucket, continuous
+        fire (at max_batch) or window arm, bucket-level liveness fallback,
+        deadline sweep. Returns True when the request is HANDLED — which
+        includes an honest refusal (shed): the caller must not route a
+        shed request down the per-session path, that would defeat the
+        backpressure bound."""
+        fire_after = False
+        with self._lock:
+            if self._closed:
+                return False
+            self._m_submitted.inc()
+            over_depth = sum(self._depth_n.values()) >= self.max_queue_depth
+        if over_depth:
+            # bounded intake: refuse NOW, loudly. Claim released, a
+            # retryable error event published, reply inbox answered —
+            # never a silent drop. (Outside the lock: the release
+            # callback re-enters the consumer's bookkeeping.)
+            self._shed(entry, "queue depth exceeded", backpressure=True)
+            return True
+        with self._lock:
+            if self._closed:
+                return False
+            ek = _entry_key(entry.kind, entry.msg)
+            d = self._dedup_str(entry.kind, ek)
+            if self._batch_claims.get(d, 0) > 0 or any(
+                d in claims for claims in self._live_claims.values()
+            ):
+                # Late intake: pub/sub ordering across topics is not
+                # guaranteed, so the manifest covering this very request
+                # can be processed BEFORE the request itself arrives here.
+                # A batch/session already owns the claim and will answer
+                # the same reply inbox; buffering a duplicate would strand
+                # an orphaned lane entry (nonzero depth gauge) until a
+                # sweep collects it. Absorb it instead.
+                return True
+            settled_at = self._settled.get(d)
+            if settled_at is not None:
+                if time.monotonic() - settled_at < _SETTLED_TTL_S:
+                    # Later still: the covering batch already finished
+                    # and forgot its claims (a dropped delivery can be
+                    # redelivered after the whole batch settled). Sign
+                    # retries carry fresh tx ids, so this is a duplicate
+                    # of an ANSWERED request — absorb, don't strand.
+                    return True
+                del self._settled[d]
+            self._buckets.setdefault(key, []).append(entry)
+            self._note_depth(entry.lane, +1)
+            ts_key = (entry.kind, ek[0], ek[1])
+            self._intake_ts[ts_key] = entry.added_at
+            while len(self._intake_ts) > _INTAKE_TS_CAP:
+                self._intake_ts.popitem(last=False)
+            if self.node.node_id == leader:
+                unfired = sum(1 for e in self._buckets[key] if not e.fired)
+                if unfired >= self._chunk_cap:
+                    fire_after = True
+                else:
+                    self._wheel.schedule_if_absent(
+                        ("win", key), self.window_s,
+                        lambda: self._fire(key),
+                    )
+            # ONE bucket-level liveness task (re-armed while entries
+            # remain), not one thread per request. The leader arms it
+            # too: entries stay bucketed until its own manifest loops
+            # back through pub/sub, so a lost manifest degrades to the
+            # per-session path instead of stranding the dedup claims.
+            self._wheel.schedule_if_absent(
+                ("fb", key), self.manifest_timeout_s,
+                lambda: self._fallback_sweep(key),
+            )
+            if entry.deadline_at != float("inf"):
+                self._arm_deadline_locked(key, entry.deadline_at)
+        tracing.instant(
+            "intake", node=self.node.node_id, tid=f"lane:{entry.lane}",
+            req_kind=entry.kind, deadline_ms=(
+                0 if entry.deadline_at == float("inf")
+                else int((entry.deadline_at - entry.added_at) * 1000)
+            ),
+        )
+        if fire_after:
+            # continuous batching: drain every full chunk ready right now
+            # (the remainder waits for the window or the next submit)
+            self._fire(key, only_full=True)
+        return True
+
+    def _note_depth(self, lane: str, delta: int) -> None:
+        """Caller holds self._lock."""
+        n = self._depth_n.get(lane, 0) + delta
+        self._depth_n[lane] = max(0, n)
+        g = self._m_depth.get(lane)
+        if g is not None:
+            g.set(self._depth_n[lane])
+
+    def _arm_deadline_locked(self, key: Tuple, deadline_at: float) -> None:
+        """Arm (or pull earlier) the bucket's deadline sweep. Caller holds
+        self._lock. The wheel key is per-bucket: one task per bucket, not
+        one per entry."""
+        delay = max(0.0, deadline_at - time.monotonic())
+        wk = ("dl", key)
+        if not self._wheel.schedule_if_absent(
+            wk, delay, lambda: self._deadline_sweep(key)
+        ):
+            # already armed — only replace if this deadline is sooner;
+            # the sweep itself re-arms to the next-soonest survivor
+            bucket = self._buckets.get(key, [])
+            soonest = min(
+                (e.deadline_at for e in bucket), default=float("inf")
+            )
+            if deadline_at <= soonest:
+                self._wheel.schedule(
+                    wk, delay, lambda: self._deadline_sweep(key)
+                )
+
+    def _deadline_sweep(self, key: Tuple) -> None:
+        """Shed every buffered entry whose deadline passed (the batch it
+        would join could no longer meet the SLO), then re-arm for the
+        next-soonest survivor."""
+        now = time.monotonic()
+        with self._lock:
+            if self._closed:
+                return
+            bucket = self._buckets.get(key, [])
+            expired = [e for e in bucket if e.deadline_at <= now]
+            bucket[:] = [e for e in bucket if e.deadline_at > now]
+            for e in expired:
+                self._note_depth(e.lane, -1)
+            nxt = min((e.deadline_at for e in bucket), default=float("inf"))
+            if nxt != float("inf"):
+                self._wheel.schedule(
+                    ("dl", key), max(0.0, nxt - now),
+                    lambda: self._deadline_sweep(key),
+                )
+        for e in expired:
+            self._shed(e, "deadline expired before dispatch")
+
+    # -- honest shedding -----------------------------------------------------
+
+    def _shed(self, e: _Entry, reason: str,
+              backpressure: bool = False) -> None:
+        """Refuse one request honestly: publish a *retryable* error event
+        (distinct idempotency key — a later retry's result must not dedupe
+        against it), answer the reply inbox, release the dedup claim, and
+        count it. Runs OUTSIDE self._lock — the release callback re-enters
+        the consumer's bookkeeping (its own lock)."""
+        self._m_shed.inc()
+        (self._m_shed_bp if backpressure else self._m_shed_dl).inc()
+        # the queued lifetime of the refused entry as a lane span, plus a
+        # shed incident (which triggers a flight-recorder dump when a
+        # dump dir is configured) — an SLO miss is explainable from the
+        # trace alone: lane, age, reason, backpressure-vs-deadline
+        tracing.emit(
+            "queue", int(e.added_at * 1e9), tracing.now_ns(),
+            node=self.node.node_id, tid=f"lane:{e.lane}",
+            req_kind=e.kind, outcome="shed", backpressure=backpressure,
+        )
+        tracing.incident(
+            "shed", node=self.node.node_id, tid=f"lane:{e.lane}",
+            req_kind=e.kind, reason=reason, backpressure=backpressure,
+        )
+        ek = _entry_key(e.kind, e.msg)
+        self._observe_e2e(e.kind, ek)
+        seq = next(self._shed_seq)
+        msg = e.msg
+        try:
+            if e.kind == "kg":
+                ev = wire.KeygenSuccessEvent(
+                    wallet_id=msg.wallet_id, ecdsa_pub_key="",
+                    eddsa_pub_key="", result_type=wire.RESULT_ERROR,
+                    error_reason=reason, retryable=True,
+                )
+                self.transport.queues.enqueue(
+                    f"{wire.TOPIC_KEYGEN_RESULT}.{msg.wallet_id}",
+                    wire.canonical_json(ev.to_json()),
+                    idempotency_key=f"{msg.wallet_id}-shed-{seq}",
+                )
+                self.on_kg_released(msg.wallet_id)
+            elif e.kind == "rs":
+                ev = wire.ResharingSuccessEvent(
+                    wallet_id=msg.wallet_id,
+                    new_threshold=msg.new_threshold,
+                    key_type=msg.key_type, pub_key="",
+                    result_type=wire.RESULT_ERROR, error_reason=reason,
+                    retryable=True,
+                )
+                self.transport.queues.enqueue(
+                    f"{wire.TOPIC_RESHARING_RESULT}.{msg.wallet_id}",
+                    wire.canonical_json(ev.to_json()),
+                    idempotency_key=(
+                        f"{msg.wallet_id}-{msg.key_type}-shed-{seq}"
+                    ),
+                )
+                self.on_rs_released(msg.key_type, msg.wallet_id)
+            else:
+                ev = wire.SigningResultEvent(
+                    result_type=wire.RESULT_ERROR,
+                    wallet_id=msg.wallet_id, tx_id=msg.tx_id,
+                    network_internal_code=msg.network_internal_code,
+                    error_reason=reason, retryable=True,
+                )
+                self.transport.queues.enqueue(
+                    f"{wire.TOPIC_SIGNING_RESULT}.{msg.tx_id}",
+                    wire.canonical_json(ev.to_json()),
+                    idempotency_key=f"{msg.tx_id}-shed-{seq}",
+                )
+                if e.reply_topic:
+                    # consume the durable delivery: the refusal IS the
+                    # answer; the client owns the retry (fresh tx id)
+                    self.transport.pubsub.publish(e.reply_topic, b"ERR")
+                self.on_tx_released(msg.wallet_id, msg.tx_id)
+        except Exception as err:  # noqa: BLE001
+            log.warn("shed notification failed (transport closing?)",
+                     wallet=getattr(msg, "wallet_id", "?"), error=repr(err))
+        log.warn("request shed", kind=e.kind, lane=e.lane, reason=reason,
+                 wallet=getattr(msg, "wallet_id", "?"),
+                 node=self.node.node_id)
+
+    def _absorb_cohort_abort(
+        self,
+        batch_id: str,
+        reqs: List[Tuple[wire.SignTxMessage, str]],
+        owned_set,
+        culprits,
+    ) -> None:
+        """Survivable identifiable abort (ISSUE 16): a batch died because
+        attributable protocol checks blamed specific lanes
+        (engine.abort.CohortAbort). Quarantine exactly those sessions —
+        one *retryable* ABORT event each, naming the culprit (party +
+        check), distinct idempotency key so a retry's result never
+        dedupes against the refusal — then re-pack the surviving
+        sessions onto fresh bucket-snapped sub-batches and run them to
+        completion. Deterministic across the quorum: every member saw
+        the same verdicts, derives the same survivor order and the same
+        child batch ids, so the re-packed sessions re-form without
+        another manifest round."""
+        by_lane: Dict[int, Tuple[str, str]] = {}
+        for lane, party, check in culprits:
+            by_lane.setdefault(int(lane), (str(party), str(check)))
+        survivors: List[Tuple[wire.SignTxMessage, str]] = []
+        for i, (msg, reply) in enumerate(reqs):
+            if i not in by_lane:
+                survivors.append((msg, reply))
+                continue
+            party, check = by_lane[i]
+            self._m_quarantined.inc()
+            reason = (
+                f"identifiable abort: party {party} failed OT check "
+                f"'{check}' (session {msg.tx_id}) — quarantined"
+            )
+            tracing.incident(
+                "cheater", node=self.node.node_id, tid=f"batch:{batch_id}",
+                req_kind="sign", reason=reason, party=party, check=check,
+            )
+            seq = next(self._shed_seq)
+            try:
+                ev = wire.SigningResultEvent(
+                    result_type=wire.RESULT_ERROR,
+                    wallet_id=msg.wallet_id, tx_id=msg.tx_id,
+                    network_internal_code=msg.network_internal_code,
+                    error_reason=reason, retryable=True,
+                )
+                self.transport.queues.enqueue(
+                    f"{wire.TOPIC_SIGNING_RESULT}.{msg.tx_id}",
+                    wire.canonical_json(ev.to_json()),
+                    idempotency_key=f"{msg.tx_id}-abort-{seq}",
+                )
+                if reply:
+                    # the refusal IS the answer; the client owns the
+                    # retry (fresh tx id, ideally a cleaner quorum)
+                    self.transport.pubsub.publish(reply, b"ERR")
+                if (msg.wallet_id, msg.tx_id) in owned_set:
+                    self.on_tx_released(msg.wallet_id, msg.tx_id)
+            except Exception as err:  # noqa: BLE001
+                log.warn("quarantine notification failed",
+                         wallet=msg.wallet_id, error=repr(err))
+            self._observe_e2e("sign", (msg.wallet_id, msg.tx_id))
+            log.warn("session quarantined (cohort abort)",
+                     batch=batch_id, wallet=msg.wallet_id, tx=msg.tx_id,
+                     party=party, check=check, node=self.node.node_id)
+        if not survivors:
+            return
+        # Bucket-snapped re-pack: pow-2 chunks exactly like _fire, so the
+        # retry batches stay on the bucket grid (a JAX peer's prewarmed
+        # shapes). Claims
+        # we hold for survivors transfer to the child runs via the same
+        # bump-then-forget handoff _inherit_covered uses — the refcount
+        # never touches zero, the consumer GC can't reap in between.
+        chunks: List[List[Tuple[wire.SignTxMessage, str]]] = []
+        rest = survivors
+        while rest:
+            n = floor_bucket(min(len(rest), self._chunk_cap))
+            chunks.append(rest[:n])
+            rest = rest[n:]
+        with self._lock:
+            if self._closed:
+                for msg, _r in survivors:
+                    if (msg.wallet_id, msg.tx_id) in owned_set:
+                        self.on_tx_released(msg.wallet_id, msg.tx_id)
+                return
+            for chunk in chunks:
+                for msg, _r in chunk:
+                    k = (msg.wallet_id, msg.tx_id)
+                    if k in owned_set:
+                        d = self._dedup_str("sign", k)
+                        self._batch_claims[d] = (
+                            self._batch_claims.get(d, 0) + 1
+                        )
+        for ci, chunk in enumerate(chunks):
+            self._m_repacked.inc()
+            child = f"{batch_id}r{ci}"
+            inherited = [
+                (m.wallet_id, m.tx_id) for m, _r in chunk
+                if (m.wallet_id, m.tx_id) in owned_set
+            ]
+            log.info("survivors re-packed after cohort abort",
+                     batch=batch_id, child=child, size=len(chunk),
+                     node=self.node.node_id)
+            threading.Thread(
+                target=self._run_guarded,
+                args=("sign", self._run_batch, child, chunk,
+                      resolve_cohorts(len(chunk))),
+                kwargs={"inherited": inherited},
+                name=f"bsign-{child}", daemon=True,
+            ).start()
+
+    def _observe_e2e_locked(self, kind: str, ek: Tuple[str, str]) -> None:  # mpclint: holds=_lock
+        t0 = self._intake_ts.pop((kind, ek[0], ek[1]), None)
+        if t0 is not None:
+            self._m_e2e.observe(time.monotonic() - t0)
+
+    def _observe_e2e(self, kind: str, ek: Tuple[str, str]) -> None:
+        with self._lock:
+            self._observe_e2e_locked(kind, ek)
+
+    def _threshold(self) -> int:
+        from ..config import get_config
+
+        return get_config().mpc_threshold
+
+    def _decline_batch(self, session_id: str, topic: str, reason: str) -> None:
+        """Announce that this node will NOT join a batch session, and keep
+        answering peers' hellos with the decline for one patience window
+        (a peer may still be minutes inside party construction when the
+        first decline goes out). Peers fail retryably instead of
+        waiting out their generous hello deadline."""
+        from ..node.session import HELLO_ROUND, Session
+        from ..wire import Envelope
+
+        def bye():
+            try:
+                Session.send_decline(
+                    self.transport, self.node.identity, self.node.node_id,
+                    session_id, topic, reason,
+                )
+            except Exception:  # noqa: BLE001
+                pass  # transport shutting down
+
+        bye()
+        if self._closed:
+            return
+
+        def on_raw(raw: bytes) -> None:
+            try:
+                env = Envelope.decode(raw)
+            except Exception:  # noqa: BLE001
+                return
+            if (
+                env.session_id == session_id
+                and env.from_id != self.node.node_id
+                and env.round == HELLO_ROUND
+                and not env.payload.get("bye")
+                # same gate as Session._on_raw: only a PEER's authentic
+                # hello earns an answer — otherwise any bus client could
+                # use this responder as a signed-decline amplifier
+                and env.from_id in self.node.peer_ids
+                and self.node.identity.verify_envelope(env)
+            ):
+                bye()
+
+        sub = self.transport.pubsub.subscribe(topic, on_raw)
+
+        def expire():
+            with self._lock:
+                s = self._decline_responders.pop(session_id, None)
+            if s is not None:
+                s.unsubscribe()
+
+        evicted = []
+        with self._lock:
+            if self._closed:
+                sub.unsubscribe()
+                return
+            self._decline_responders[session_id] = sub
+            # cap concurrent responders: a burst of refused batches must
+            # not park one subscription each for the full patience window.
+            # Evict the OLDEST (its decline has been broadcast longest);
+            # a late hello to an evicted session goes unanswered and fails
+            # at the asker's hello deadline instead — degraded, not wrong.
+            while len(self._decline_responders) > self.decline_cap:
+                old_sid, old_sub = self._decline_responders.popitem(last=False)
+                self._wheel.cancel(("decl", old_sid))
+                evicted.append(old_sub)
+                self._m_decl_evict.inc()
+        self._wheel.schedule(("decl", session_id), self.batch_patience_s,
+                             expire)
+        for old_sub in evicted:
+            try:
+                old_sub.unsubscribe()
+            except Exception:  # noqa: BLE001
+                pass
+
+    # -- leader: manifest emission ------------------------------------------
+
+    def _fire(self, key: Tuple, only_full: bool = False) -> None:
+        """Publish manifests covering the bucket's unfired entries, filled
+        interactive-lane-first / oldest-deadline-first and drained in
+        pow-2 chunks of at most ``floor_bucket(max_batch)`` (continuous
+        batching: every full chunk goes now; with ``only_full`` the
+        sub-chunk remainder waits for its window). Chunk sizes snap DOWN
+        to the bucket grid — a window flush of 6 entries goes as 4 + 2,
+        never as a one-off 6-wide batch.
+        The entries STAY in the bucket (marked fired) until the manifest
+        loops back through _on_manifest_raw, which removes them and hands
+        their dedup claims to the batch — the same path followers take, so
+        the leader's claims can never be stranded by the old
+        pop-and-forget."""
+        while True:
+            now = time.monotonic()
+            t_fire0 = tracing.now_ns()
+            with self._lock:
+                self._wheel.cancel(("win", key))
+                unfired = [
+                    e for e in self._buckets.get(key, []) if not e.fired
+                ]
+                if not unfired or (only_full
+                                   and len(unfired) < self._chunk_cap):
+                    return
+                unfired.sort(key=_Entry.fill_rank)
+                chunk = floor_bucket(min(len(unfired), self._chunk_cap))
+                entries = unfired[:chunk]
+                for e in entries:
+                    e.fired = True
+                self._m_batches.inc()
+                self._m_fill.observe(len(entries) / self._chunk_cap)
+                for e in entries:
+                    self._m_age.observe(now - e.added_at)
+            kind = entries[0].kind
+            batch_id = secrets.token_hex(8)
+            requests = [
+                {"msg": e.msg.to_json(), "reply": e.reply_topic}
+                for e in entries
+            ]
+            # cohort-aligned manifest: the chunk is a bucket, and the
+            # advertised counter-phase cohort count keeps every cohort
+            # slice (chunk ÷ K) on the bucket grid too
+            # (engine/pipeline.resolve_cohorts falls back toward K=1
+            # rather than leave the grid)
+            cohorts = resolve_cohorts(len(entries))
+            body = _manifest_body(
+                batch_id, self.node.node_id, requests, kind, cohorts
+            )
+            manifest = {
+                "batch_id": batch_id,
+                "leader": self.node.node_id,
+                "requests": requests,
+                "kind": kind,
+                "cohorts": cohorts,
+                "sig": self.node.identity.sign_raw(body).hex(),
+            }
+            self.transport.pubsub.publish(
+                wire.TOPIC_BATCH_MANIFEST, json.dumps(manifest).encode()
+            )
+            # the dispatch decision + each entry's queued lifetime, on the
+            # lane track, linked to the downstream batch session by id
+            t_disp = tracing.now_ns()
+            for e in entries:
+                tracing.emit(
+                    "queue", int(e.added_at * 1e9), t_disp,
+                    node=self.node.node_id, tid=f"lane:{e.lane}",
+                    req_kind=kind, outcome="dispatched", batch=batch_id,
+                )
+            tracing.emit(
+                "dispatch", t_fire0, t_disp,
+                node=self.node.node_id, tid=f"lane:{entries[0].lane}",
+                req_kind=kind, batch=batch_id, n=len(entries),
+            )
+            if len(entries) == len(unfired):
+                return  # bucket drained (sub-bucket tails fired above)
+
+    def _fallback_sweep(self, key: Tuple) -> None:
+        """Follower liveness, with deputy escalation: when the acting
+        leader (smallest LIVE participant) is THIS node, entries the
+        previous leader never covered are re-fired under our own manifest
+        instead of dropping to the per-session path — the static-leader
+        throughput cliff. Entries whose takeover also times out (our
+        manifest lost too) go per-session on the next sweep; re-arm while
+        the bucket stays non-empty."""
+        now = time.monotonic()
+        stale: List[_Entry] = []
+        takeover: List[_Entry] = []
+        expired: List[_Entry] = []
+        with self._lock:
+            if self._closed:
+                return
+            bucket = self._buckets.get(key, [])
+            # Deadline gate FIRST: an entry whose SLO already expired is
+            # shed retryably, never re-fired — a deputy taking over a dead
+            # leader's backlog must not double-fire work whose client has
+            # given up (the leader's original manifest may still be in
+            # flight; two manifests for a live entry are idempotent, but
+            # an expired one only wastes a batch slot and risks a
+            # confusing late success).
+            expired = [e for e in bucket if e.deadline_at <= now]
+            if expired:
+                bucket[:] = [e for e in bucket if e.deadline_at > now]
+                for e in expired:
+                    self._note_depth(e.lane, -1)
+            # Escalation schedule: at age T the acting leader (deputy,
+            # once the registry has marked the old leader dead) re-fires
+            # the entries under its own manifest; everyone else waits 2T
+            # before the per-session path so a follower's fallback can't
+            # race the deputy's manifest. A taken-over entry's clock is
+            # reset — if the deputy's manifest is lost too, it reaches
+            # per-session one T later.
+            T = self.manifest_timeout_s
+            if self._acting_leader(
+                _key_participants(key)
+            ) == self.node.node_id:
+                takeover = [
+                    e for e in bucket
+                    if now - e.added_at >= T and not e.took_over
+                ]
+                for e in takeover:
+                    e.took_over = True
+                    e.fired = False
+                    e.added_at = now
+            stale = [
+                e for e in bucket
+                if e not in takeover
+                and now - e.added_at >= (T if e.took_over else 2 * T)
+            ]
+            bucket[:] = [e for e in bucket if e not in stale]
+            for e in stale:
+                self._note_depth(e.lane, -1)
+            if bucket:
+                self._wheel.schedule(
+                    ("fb", key), T, lambda: self._fallback_sweep(key)
+                )
+        for e in expired:
+            self._shed(e, "deadline expired awaiting manifest")
+        if takeover:
+            self._m_takeover.inc()
+            log.warn(
+                "batch leader timed out — deputy taking over manifest",
+                node=self.node.node_id, entries=len(takeover),
+                kind=takeover[0].kind,
+            )
+            self._fire(key)
+        for e in stale:
+            self._m_fallback.inc()
+            log.warn("batch manifest timeout — per-session fallback",
+                     wallet=e.msg.wallet_id, kind=e.kind,
+                     node=self.node.node_id)
+            if e.kind == "kg":
+                if self.on_fallback_keygen:
+                    self.on_fallback_keygen(e.msg)
+            elif e.kind == "rs":
+                if self.on_fallback_reshare:
+                    self.on_fallback_reshare(e.msg)
+            elif self.on_fallback:
+                self.on_fallback(e.msg, e.reply_topic)
+
+    # -- all quorum members: manifest execution ------------------------------
+
+    def _on_manifest_raw(self, raw: bytes) -> None:
+        try:
+            man = json.loads(raw)
+            batch_id = man["batch_id"]
+            leader = man["leader"]
+            sig = bytes.fromhex(man["sig"])
+            requests = man["requests"]
+            kind = man.get("kind", "sign")
+            cohorts = int(man.get("cohorts", 1))
+            msg_cls = {
+                "kg": wire.GenerateKeyMessage,
+                "rs": wire.ResharingMessage,
+            }.get(kind, wire.SignTxMessage)
+            reqs = [
+                (msg_cls.from_json(r["msg"]), r.get("reply", ""))
+                for r in requests
+            ]
+        except Exception as e:  # noqa: BLE001
+            log.warn("bad batch manifest dropped", error=repr(e))
+            return
+        if not reqs:
+            return
+        # the cohort count is leader-advertised but engine-clamped: an
+        # off-grid K degrades to the serial oracle, it cannot force an
+        # off-grid cohort width (resolve_cohorts re-validates against B)
+        cohorts = resolve_cohorts(len(reqs), cohorts)
+        # leader authenticity: must be signed by the node it claims to be
+        # from, and that node must be a MEMBER of the wallets' topology
+        # (checked against OUR keyinfo below; rank decides who sends, not
+        # who is accepted — deputy takeover depends on that)
+        body = _manifest_body(
+            batch_id, leader, requests, kind, int(man.get("cohorts", 1))
+        )
+        if not self.node.identity.verify_peer(leader, body, sig):
+            log.warn("batch manifest with BAD leader signature dropped",
+                     batch=batch_id)
+            return
+        if kind == "kg":
+            self._on_keygen_manifest(batch_id, leader, reqs, cohorts)
+            return
+        if kind == "rs":
+            self._on_reshare_manifest(batch_id, leader, reqs, cohorts)
+            return
+        # leadership is rank-based with deputy takeover (_acting_leader):
+        # any MEMBER of the wallet topology may lead; signatures and
+        # content checks below carry the trust, rank only picks the sender
+        info = self.node.keyinfo.get(reqs[0][0].key_type, reqs[0][0].wallet_id)
+        if info is None or leader not in info.participant_peer_ids:
+            log.warn("batch manifest from non-member dropped",
+                     batch=batch_id, claimed=leader)
+            return
+        # batch homogeneity: the leader is untrusted — every request must
+        # share the first's curve and (participants, threshold, epoch)
+        # bucket (otherwise a leader for ONE wallet could smuggle foreign
+        # topologies/curves into followers' batches). ECDSA's Paillier-
+        # material homogeneity is enforced by the party constructor in
+        # _run_batch (requires share loads; a mixed batch fails retryably).
+        kt = reqs[0][0].key_type
+        if kt not in (wire.KEY_TYPE_ED25519, wire.KEY_TYPE_SECP256K1):
+            log.warn("unsupported curve in manifest dropped", batch=batch_id)
+            return
+        want = _bucket_key(info)
+        for msg, _reply in reqs:
+            if msg.key_type != kt:
+                log.warn("mixed-curve batch manifest dropped", batch=batch_id)
+                return
+            winfo = self.node.keyinfo.get(msg.key_type, msg.wallet_id)
+            if winfo is None or _bucket_key(winfo) != want:
+                log.warn("mixed-topology batch manifest dropped",
+                         batch=batch_id, wallet=msg.wallet_id)
+                return
+        # the leader is untrusted for content: re-verify every initiator
+        # signature
+        for msg, _reply in reqs:
+            if not self.node.identity.verify_initiator(msg.raw(), msg.signature):
+                log.warn("batch manifest with BAD initiator signature dropped",
+                         batch=batch_id)
+                return
+        # drop covered entries from local buffers BEFORE any early return,
+        # so follower fallback timers cannot race a manifest we act on.
+        # Entries pulled from our buckets carry a dedup claim acquired by
+        # the consumer's _on_sign before submit() — the batch inherits those
+        # claims and must finish/release them (a claim whose entry was never
+        # in a bucket belongs to a live per-session run, not to us).
+        covered = {_entry_key("sign", m) for m, _ in reqs}
+        inherited = self._inherit_covered("sign", covered)
+        threading.Thread(
+            target=self._run_guarded,
+            args=("sign", self._run_batch, batch_id, reqs, cohorts),
+            kwargs={"inherited": inherited},
+            name=f"bsign-{batch_id}", daemon=True,
+        ).start()
+
+    @staticmethod
+    def _dedup_str(kind: str, ek: Tuple[str, str]) -> str:
+        """Map an _entry_key to the consumer's dedup-claim string."""
+        if kind == "kg":
+            return f"keygen-{ek[0]}"
+        if kind == "rs":
+            kt, w = ek[0].split(":", 1)
+            return f"reshare-{kt}-{w}"
+        return f"{ek[0]}-{ek[1]}"
+
+    def owns_dedup(self, dedup_key: str) -> bool:
+        """True while this scheduler is responsible for the claim — the
+        request sits in a bucket awaiting a manifest, or a running batch
+        inherited it. The consumer's GC must not reap (and error-report)
+        such claims: full-size batches legitimately outlive the session
+        timeout."""
+        with self._lock:
+            if self._batch_claims.get(dedup_key, 0) > 0:
+                return True
+            for claims in self._live_claims.values():
+                if dedup_key in claims:
+                    return True
+            for bucket in self._buckets.values():
+                for e in bucket:
+                    if self._dedup_str(
+                        e.kind, _entry_key(e.kind, e.msg)
+                    ) == dedup_key:
+                        return True
+        return False
+
+    def _inherit_covered(self, kind: str, covered) -> List[Tuple[str, str]]:
+        """Remove manifest-covered entries of ``kind`` from local buckets,
+        returning their claim keys (inherited by the batch; tracked in
+        _batch_claims until the batch thread forgets them)."""
+        inherited: List[Tuple[str, str]] = []
+        with self._lock:
+            for bucket in self._buckets.values():
+                kept = []
+                for e in bucket:
+                    k = _entry_key(e.kind, e.msg)
+                    if e.kind == kind and k in covered:
+                        inherited.append(k)
+                        self._note_depth(e.lane, -1)
+                    else:
+                        kept.append(e)
+                bucket[:] = kept
+            for k in inherited:
+                d = self._dedup_str(kind, k)
+                self._batch_claims[d] = self._batch_claims.get(d, 0) + 1
+        return inherited
+
+    def _settle_locked(self, dedups) -> None:  # mpclint: holds=_lock
+        """Stamp settled SIGN dedup strings for the late-duplicate
+        absorption window (see _settled). Caller holds self._lock."""
+        now = time.monotonic()
+        for d in dedups:
+            self._settled[d] = now
+            self._settled.move_to_end(d)
+        while len(self._settled) > _SETTLED_CAP:
+            self._settled.popitem(last=False)
+
+    def _forget_locked(self, kind: str, keys) -> None:  # mpclint: holds=_lock
+        """Decrement (and drop at zero) the refcounts for ``keys``.
+        Caller holds self._lock."""
+        for k in keys:
+            d = self._dedup_str(kind, k)
+            n = self._batch_claims.get(d, 0) - 1
+            if n > 0:
+                self._batch_claims[d] = n
+            else:
+                self._batch_claims.pop(d, None)
+                if kind == "sign":
+                    self._settle_locked([d])
+
+    def _forget_batch_claims(self, kind: str, inherited) -> None:
+        """Batch thread is done (success, release, or crash): the
+        consumer's GC owns any still-unreleased claims from here on."""
+        with self._lock:
+            self._forget_locked(kind, inherited)
+
+    def _run_guarded(self, kind: str, runner, batch_id, reqs, *mid,
+                     inherited):
+        """Thread entry for every batch runner: registers ALL the
+        batch's request keys in _batch_claims for the run's duration
+        (conservative — claims held by live per-session runs have
+        tracked sessions and never consult owns_dedup), and guarantees
+        they are forgotten even if the runner crashes, so a dead batch's
+        claims age into the consumer GC instead of black-holing.
+
+        ``inherited`` is keyword-only (misrouting it would leak the
+        inherit-phase refcounts forever): the covered entries' holds
+        from _inherit_covered transfer to this registration — register
+        first, then release, under one lock, so the count never touches
+        zero and the GC can't reap in between. The runner receives it
+        as its final positional argument after ``mid``."""
+        keys = [_entry_key(kind, m) for m, _r in reqs]
+        with self._lock:
+            for k in keys:
+                d = self._dedup_str(kind, k)
+                self._batch_claims[d] = self._batch_claims.get(d, 0) + 1
+            self._forget_locked(kind, inherited)
+        try:
+            runner(batch_id, reqs, *mid, inherited)
+        except BaseException:
+            # runner died before (or during) the session handoff: purge
+            # THIS batch's _live_claims registration (session ids embed
+            # the batch id — another concurrent batch covering the same
+            # requests must keep its own protection)
+            with self._lock:
+                for sid in list(self._live_claims):
+                    if sid.endswith(batch_id):
+                        del self._live_claims[sid]
+            raise
+        finally:
+            self._forget_batch_claims(kind, keys)
+
+    # -- batched DKG (kind == "kg") ------------------------------------------
+
+    def _on_keygen_manifest(
+        self, batch_id: str, leader: str, reqs, cohorts: int = 1
+    ) -> None:
+        node = self.node
+        # rank-based leadership with deputy takeover: any cluster member
+        # may lead (signatures + content checks carry the trust)
+        if leader not in node.peer_ids:
+            log.warn("keygen manifest from non-member dropped",
+                     batch=batch_id, claimed=leader)
+            return
+        for msg, _r in reqs:
+            if not node.identity.verify_initiator(msg.raw(), msg.signature):
+                log.warn("keygen manifest with BAD initiator signature "
+                         "dropped", batch=batch_id)
+                return
+        covered = {_entry_key("kg", m) for m, _ in reqs}
+        inherited = self._inherit_covered("kg", covered)
+        threading.Thread(
+            target=self._run_guarded,
+            args=("kg", self._run_keygen_batch, batch_id, reqs, cohorts),
+            kwargs={"inherited": inherited},
+            name=f"bdkg-{batch_id}", daemon=True,
+        ).start()
+
+    def _run_keygen_batch(
+        self, batch_id: str, reqs, cohorts: int = 1,
+        inherited: List[Tuple[str, str]] = (),
+    ) -> None:
+        from ..protocol.batch_dkg import BatchedDKGParty
+
+        node = self.node
+        owned = set(inherited)
+        for msg, _r in reqs:
+            k = _entry_key("kg", msg)
+            if k not in owned and self.claim_kg(msg.wallet_id):
+                owned.add(k)
+        def decline_both(reason: str):
+            for kt in (wire.KEY_TYPE_SECP256K1, wire.KEY_TYPE_ED25519):
+                self._decline_batch(
+                    f"bdkg:{kt}:{batch_id}",
+                    f"bdkg:broadcast:{kt}:{batch_id}", reason,
+                )
+
+        if len(owned) < len(reqs):
+            # some lane's claim is held by a live per-session fallback run
+            # (the manifest arrived late). Unlike signing — where running
+            # both paths is harmless (results are idempotent, nothing is
+            # persisted) — a keygen batch PERSISTS key material, and two
+            # concurrent DKGs for one wallet could write shares of
+            # different keys on different nodes. Refuse the whole batch:
+            # peers that did join fail cleanly without persisting; the
+            # initiator retries.
+            log.warn("keygen batch refused — lane owned by live fallback",
+                     batch=batch_id, node=node.node_id)
+            for w, _t in owned:
+                self.on_kg_released(w)
+            decline_both("lane owned by live fallback")
+            return
+
+        def emit_error(wallet_id: str, reason: str):
+            ev = wire.KeygenSuccessEvent(
+                wallet_id=wallet_id, ecdsa_pub_key="", eddsa_pub_key="",
+                result_type=wire.RESULT_ERROR, error_reason=reason,
+            )
+            self.transport.queues.enqueue(
+                f"{wire.TOPIC_KEYGEN_RESULT}.{wallet_id}",
+                wire.canonical_json(ev.to_json()),
+                idempotency_key=f"{wallet_id}-err",
+            )
+
+        def fail_all(reason: str):
+            # mpc:generate is an ephemeral command (no durable redelivery,
+            # reference semantics) — surface terminal errors
+            for msg, _r in reqs:
+                if _entry_key("kg", msg) in owned:
+                    emit_error(msg.wallet_id, reason)
+                    self.on_kg_done(msg.wallet_id)
+
+        if node.registry.ready_count() < len(node.peer_ids):
+            fail_all("cluster not ready for keygen")
+            decline_both("cluster not ready for keygen")
+            return
+        threshold = self._threshold()
+        B = len(reqs)
+        participants = list(node.peer_ids)
+        results: Dict[str, list] = {}
+        errors: List = []
+        done_evt = threading.Event()
+        lock = threading.Lock()
+
+        def mk_done(kt):
+            def _d(shares):
+                with lock:
+                    results[kt] = shares
+                    if len(results) == 2:
+                        done_evt.set()
+            return _d
+
+        def mk_err(kt):
+            def _e(err):
+                with lock:
+                    errors.append((kt, err))
+                done_evt.set()
+            return _e
+
+        sessions = []
+        try:
+            for kt in (wire.KEY_TYPE_SECP256K1, wire.KEY_TYPE_ED25519):
+                party = BatchedDKGParty(
+                    f"bdkg:{kt}:{batch_id}", node.node_id, participants,
+                    threshold, kt, B,
+                    preparams=(
+                        node.preparams
+                        if kt == wire.KEY_TYPE_SECP256K1
+                        else None
+                    ),
+                    min_paillier_bits=node.min_paillier_bits,
+                    cohorts=cohorts,
+                    device=self.device,
+                )
+                sessions.append(
+                    Session(
+                        session_id=f"bdkg:{kt}:{batch_id}",
+                        party=party,
+                        node_id=node.node_id,
+                        participants=participants,
+                        transport=self.transport,
+                        identity=node.identity,
+                        broadcast_topic=f"bdkg:broadcast:{kt}:{batch_id}",
+                        direct_topic_fn=(
+                            lambda n, kt=kt:
+                            f"bdkg:direct:{kt}:{n}:{batch_id}"
+                        ),
+                        on_done=mk_done(kt),
+                        on_error=mk_err(kt),
+                        hello_timeout_s=self.batch_patience_s,
+                        send_patience_s=self.batch_patience_s,
+                    )
+                )
+        except Exception as e:  # noqa: BLE001
+            log.error("batched DKG setup failed", batch=batch_id,
+                      error=str(e))
+            fail_all(str(e))
+            decline_both(str(e))
+            return
+        with self._lock:
+            if self._closed:
+                for w, _ in owned:
+                    self.on_kg_released(w)
+                return
+            self._sessions.extend(sessions)
+            self.batches_run += 1
+        for s in sessions:
+            s.listen()
+        finished = done_evt.wait(3600)
+        with self._lock:
+            for s in sessions:
+                if s in self._sessions:
+                    self._sessions.remove(s)
+        for s in sessions:
+            s.close()
+        if errors or not finished or len(results) != 2:
+            reason = (
+                "; ".join(f"{kt}: {e}" for kt, e in errors)
+                if errors else "batched keygen timed out"
+            )
+            log.error("batched DKG failed", batch=batch_id, reason=reason,
+                      node=node.node_id)
+            fail_all(reason)
+            return
+        secp = results[wire.KEY_TYPE_SECP256K1]
+        ed = results[wire.KEY_TYPE_ED25519]
+        for i, (msg, _r) in enumerate(reqs):
+            wid = msg.wallet_id
+            node.save_share(secp[i], wid)
+            node.save_share(ed[i], wid)
+            ev = wire.KeygenSuccessEvent(
+                wallet_id=wid,
+                ecdsa_pub_key=secp[i].public_key.hex(),
+                eddsa_pub_key=ed[i].public_key.hex(),
+            )
+            self.transport.queues.enqueue(
+                f"{wire.TOPIC_KEYGEN_RESULT}.{wid}",
+                wire.canonical_json(ev.to_json()),
+                idempotency_key=wid,
+            )
+            if _entry_key("kg", msg) in owned:
+                self.on_kg_done(wid)
+            self._observe_e2e("kg", _entry_key("kg", msg))
+        log.info("batched DKG complete", batch=batch_id, wallets=B,
+                 node=node.node_id)
+
+    # -- batched resharing (kind == "rs") ------------------------------------
+
+    def _on_reshare_manifest(
+        self, batch_id: str, leader: str, reqs, cohorts: int = 1
+    ) -> None:
+        node = self.node
+        first = reqs[0][0]
+        info = node.keyinfo.get(first.key_type, first.wallet_id)
+        # rank-based leadership with deputy takeover (see _acting_leader)
+        if info is None or leader not in info.participant_peer_ids:
+            log.warn("reshare manifest from non-member dropped",
+                     batch=batch_id, claimed=leader)
+            return
+        want = (
+            first.key_type, tuple(info.participant_peer_ids),
+            info.threshold, info.epoch, first.new_threshold,
+        )
+        for msg, _r in reqs:
+            winfo = node.keyinfo.get(msg.key_type, msg.wallet_id)
+            got = None if winfo is None else (
+                msg.key_type, tuple(winfo.participant_peer_ids),
+                winfo.threshold, winfo.epoch, msg.new_threshold,
+            )
+            if got != want:
+                log.warn("mixed-topology reshare manifest dropped",
+                         batch=batch_id, wallet=msg.wallet_id)
+                return
+            if not node.identity.verify_initiator(msg.raw(), msg.signature):
+                log.warn("reshare manifest with BAD initiator signature "
+                         "dropped", batch=batch_id)
+                return
+        covered = {_entry_key("rs", m) for m, _ in reqs}
+        inherited = self._inherit_covered("rs", covered)
+        threading.Thread(
+            target=self._run_guarded,
+            args=("rs", self._run_reshare_batch, batch_id, reqs, info,
+                  cohorts),
+            kwargs={"inherited": inherited},
+            name=f"brs-{batch_id}", daemon=True,
+        ).start()
+
+    def _run_reshare_batch(
+        self, batch_id: str, reqs, info, cohorts: int = 1, inherited=()
+    ) -> None:
+        from ..node.node import share_key
+        from ..protocol.batch_dkg import BatchedReshareParty
+        from ..store.keyinfo import KeyInfo
+
+        node = self.node
+        first = reqs[0][0]
+        kt = first.key_type
+        owned = set(inherited)
+        for msg, _r in reqs:
+            k = _entry_key("rs", msg)
+            if k not in owned and self.claim_rs(msg.key_type, msg.wallet_id):
+                owned.add(k)
+        if len(owned) < len(reqs):
+            # same rule as keygen: a reshare batch persists key material —
+            # never run it concurrently with a live per-session rotation of
+            # the same wallet (two independent re-deal polynomials both at
+            # epoch+1 would be indistinguishable to the epoch fence)
+            log.warn("reshare batch refused — lane owned by live fallback",
+                     batch=batch_id, node=node.node_id)
+            for w, _t in owned:
+                self.on_rs_released(kt, w.split(":", 1)[1])
+            self._decline_batch(
+                f"brs:{kt}:{batch_id}", f"brs:broadcast:{kt}:{batch_id}",
+                "lane owned by live fallback",
+            )
+            return
+
+        def emit_error(msg, reason: str):
+            ev = wire.ResharingSuccessEvent(
+                wallet_id=msg.wallet_id, new_threshold=msg.new_threshold,
+                key_type=msg.key_type, pub_key="",
+                result_type=wire.RESULT_ERROR, error_reason=reason,
+            )
+            self.transport.queues.enqueue(
+                f"{wire.TOPIC_RESHARING_RESULT}.{msg.wallet_id}",
+                wire.canonical_json(ev.to_json()),
+                idempotency_key=f"{msg.wallet_id}-{msg.key_type}-err",
+            )
+
+        def fail_all(reason: str):
+            # mpc:reshare is an ephemeral command (reference semantics)
+            for msg, _r in reqs:
+                if _entry_key("rs", msg) in owned:
+                    emit_error(msg, reason)
+                    self.on_rs_done(msg.key_type, msg.wallet_id)
+
+        try:
+            old_quorum = node._ready_quorum(
+                info.participant_peer_ids, info.threshold + 1
+            )[: info.threshold + 1]
+            new_committee = node.registry.ready_peers()
+            if len(new_committee) < first.new_threshold + 1:
+                raise NotEnoughParticipants(
+                    f"{len(new_committee)} ready < new threshold"
+                )
+            is_old = node.node_id in old_quorum
+            old_shares = None
+            pubs = []
+            for msg, _r in reqs:
+                winfo = node.keyinfo.get(kt, msg.wallet_id)
+                pubs.append(bytes.fromhex(winfo.public_key))
+            if is_old:
+                old_shares = []
+                for msg, _r in reqs:
+                    share = node.load_share(kt, msg.wallet_id)
+                    winfo = node.keyinfo.get(kt, msg.wallet_id)
+                    if share.epoch != winfo.epoch:
+                        raise NotEnoughParticipants("epoch fence (mid-reshare)")
+                    old_shares.append(share)
+            party = BatchedReshareParty(
+                f"brs:{kt}:{batch_id}", node.node_id, kt,
+                old_quorum, new_committee, first.new_threshold, len(reqs),
+                old_shares=old_shares, old_public_keys=pubs,
+                preparams=(
+                    node.preparams if kt == wire.KEY_TYPE_SECP256K1 else None
+                ),
+                min_paillier_bits=node.min_paillier_bits,
+                old_epoch=info.epoch,
+                cohorts=cohorts,
+                device=self.device,
+            )
+        except (ProtocolError, NotEnoughParticipants) as e:
+            log.warn("batched reshare not runnable", batch=batch_id,
+                     reason=str(e), node=node.node_id)
+            fail_all(str(e))
+            self._decline_batch(
+                f"brs:{kt}:{batch_id}", f"brs:broadcast:{kt}:{batch_id}",
+                str(e),
+            )
+            return
+
+        def on_done(new_shares):
+            new_epoch = info.epoch + 1
+            for i, (msg, _r) in enumerate(reqs):
+                wid = msg.wallet_id
+                if new_shares is not None:
+                    node.save_share(new_shares[i], wid)
+                elif party.is_old:
+                    # old-only member: superseded share — delete + point
+                    # keyinfo at the new topology (node.py persist_and_done)
+                    node.kvstore.delete(share_key(kt, wid))
+                    node.keyinfo.save(
+                        kt, wid,
+                        KeyInfo(
+                            participant_peer_ids=list(party.new_committee),
+                            threshold=party.t_new,
+                            is_reshared=True,
+                            public_key=pubs[i].hex(),
+                            vss_commitments=[],
+                            epoch=new_epoch,
+                        ),
+                    )
+                if new_shares is not None:
+                    ev = wire.ResharingSuccessEvent(
+                        wallet_id=wid, new_threshold=msg.new_threshold,
+                        key_type=kt,
+                        pub_key=new_shares[i].public_key.hex(),
+                    )
+                    self.transport.queues.enqueue(
+                        f"{wire.TOPIC_RESHARING_RESULT}.{wid}",
+                        wire.canonical_json(ev.to_json()),
+                        idempotency_key=f"{wid}-{kt}",
+                    )
+                if _entry_key("rs", msg) in owned:
+                    self.on_rs_done(kt, wid)
+                self._observe_e2e("rs", _entry_key("rs", msg))
+            log.info("batched reshare complete", batch=batch_id,
+                     wallets=len(reqs), node=node.node_id)
+            _prune()
+
+        def on_error(e):
+            log.error("batched reshare failed", batch=batch_id,
+                      error=str(e), node=node.node_id)
+            fail_all(str(e))
+            _prune()
+
+        def _prune():
+            with self._lock:
+                if session in self._sessions:
+                    self._sessions.remove(session)
+                self._live_claims.pop(f"brs:{kt}:{batch_id}", None)
+            session.close()
+
+        session = Session(
+            session_id=f"brs:{kt}:{batch_id}",
+            party=party,
+            node_id=node.node_id,
+            participants=sorted(set(old_quorum) | set(new_committee)),
+            transport=self.transport,
+            identity=node.identity,
+            broadcast_topic=f"brs:broadcast:{kt}:{batch_id}",
+            direct_topic_fn=lambda n: f"brs:direct:{kt}:{n}:{batch_id}",
+            on_done=on_done,
+            on_error=on_error,
+            hello_timeout_s=self.batch_patience_s,
+            send_patience_s=self.batch_patience_s,
+        )
+        with self._lock:
+            if self._closed:
+                for w in list(owned):
+                    self.on_rs_released(kt, w[0].split(":", 1)[1])
+                return
+            self._sessions.append(session)
+            # async handoff: the session owns the claims until _prune
+            self._live_claims[f"brs:{kt}:{batch_id}"] = {
+                self._dedup_str("rs", k) for k in owned
+            }
+            self.batches_run += 1
+        session.listen()
+
+    def _run_batch(
+        self,
+        batch_id: str,
+        reqs: List[Tuple[wire.SignTxMessage, str]],
+        cohorts: int = 1,
+        inherited: List[Tuple[str, str]] = (),
+    ) -> None:
+        node = self.node
+        first = reqs[0][0]
+        info = node.keyinfo.get(first.key_type, first.wallet_id)
+        if info is None:
+            return
+        # The batch owns two kinds of dedup claims: (a) claims inherited
+        # from entries the manifest pulled out of our local buckets (the
+        # consumer's _on_sign claimed, then routed to submit()), and
+        # (b) claims we acquire here for lanes the manifest beat the
+        # pub/sub copy of the request to. A claim that is neither — held by
+        # a live per-session run because the manifest raced the fallback —
+        # must not be finished/released by us; that run owns its lifecycle.
+        owned_set = set(inherited)
+        for msg, _r in reqs:
+            k = (msg.wallet_id, msg.tx_id)
+            if k not in owned_set and self.claim_tx(*k):
+                owned_set.add(k)
+        owned = list(owned_set)
+
+        def release_all(reason: str = ""):
+            for w, t in owned:
+                self.on_tx_released(w, t)
+            # tell peers (possibly still at their hello barrier) we
+            # are not coming, so they fail retryably NOW
+            self._decline_batch(
+                f"bsign:{batch_id}", f"bsign:broadcast:{batch_id}", reason
+            )
+
+        try:
+            quorum = node._ready_quorum(
+                info.participant_peer_ids, info.threshold + 1
+            )
+        except NotEnoughParticipants as e:
+            release_all(str(e))
+            return  # no reply ⇒ durable redelivery retries
+        if node.node_id not in quorum:
+            release_all("not in quorum")
+            return
+        shares: List[KeygenShare] = []
+        messages: List[bytes] = []
+        kt = first.key_type
+        try:
+            for msg, _r in reqs:
+                share = node.load_share(msg.key_type, msg.wallet_id)
+                winfo = node.keyinfo.get(msg.key_type, msg.wallet_id)
+                if winfo is None or share.epoch != winfo.epoch:
+                    raise NotEnoughParticipants("epoch fence (mid-reshare)")
+                shares.append(share)
+                messages.append(msg.tx)
+            if kt == wire.KEY_TYPE_SECP256K1:
+                from ..engine.gg18_batch import Domains
+                from ..protocol.ecdsa.batch_signing import (
+                    BatchedECDSASigningParty,
+                )
+
+                party = BatchedECDSASigningParty(
+                    f"bsign:{batch_id}", node.node_id, quorum, shares,
+                    messages, dom=self.gg18_dom or Domains(),
+                    cohorts=cohorts, device=self.device,
+                )
+            else:
+                party = BatchedEDDSASigningParty(
+                    f"bsign:{batch_id}", node.node_id, quorum, shares,
+                    messages, cohorts=cohorts, device=self.device,
+                )
+        except (ProtocolError, NotEnoughParticipants) as e:
+            log.warn("batch not signable here — waiting for redelivery",
+                     batch=batch_id, reason=str(e), node=node.node_id)
+            release_all(str(e))
+            return
+
+        def on_done(result):
+            ok = result["ok"]
+            for i, (msg, reply) in enumerate(reqs):
+                if bool(ok[i]) and kt == wire.KEY_TYPE_SECP256K1:
+                    ev = wire.SigningResultEvent(
+                        result_type=wire.RESULT_SUCCESS,
+                        wallet_id=msg.wallet_id,
+                        tx_id=msg.tx_id,
+                        network_internal_code=msg.network_internal_code,
+                        r=result["r"][i].tobytes().hex(),
+                        s=result["s"][i].tobytes().hex(),
+                        signature_recovery=format(
+                            int(result["recovery"][i]), "02x"
+                        ),
+                    )
+                elif bool(ok[i]):
+                    ev = wire.SigningResultEvent(
+                        result_type=wire.RESULT_SUCCESS,
+                        wallet_id=msg.wallet_id,
+                        tx_id=msg.tx_id,
+                        network_internal_code=msg.network_internal_code,
+                        signature=result["signatures"][i].tobytes().hex(),
+                    )
+                else:
+                    ev = wire.SigningResultEvent(
+                        result_type=wire.RESULT_ERROR,
+                        wallet_id=msg.wallet_id,
+                        tx_id=msg.tx_id,
+                        network_internal_code=msg.network_internal_code,
+                        error_reason="batched signature failed verification",
+                    )
+                self.transport.queues.enqueue(
+                    f"{wire.TOPIC_SIGNING_RESULT}.{msg.tx_id}",
+                    wire.canonical_json(ev.to_json()),
+                    idempotency_key=msg.tx_id,
+                )
+                if reply:
+                    self.transport.pubsub.publish(
+                        reply, b"OK" if bool(ok[i]) else b"ERR"
+                    )
+                if (msg.wallet_id, msg.tx_id) in owned_set:
+                    self.on_tx_done(msg.wallet_id, msg.tx_id)
+                self._observe_e2e("sign", (msg.wallet_id, msg.tx_id))
+            log.info("batch signed", batch=batch_id, size=len(reqs),
+                     node=node.node_id)
+            _prune()
+
+        def on_error(e):
+            # Identifiable abort (engine.abort.CohortAbort, duck-typed on
+            # .culprits so the distributed party can forward a peer's
+            # abort without importing the engine): quarantine exactly the
+            # blamed sessions and re-pack the survivors — never the
+            # whole-batch release below, which would retry the cheater
+            # alongside its victims forever.
+            culprits = getattr(e, "culprits", None)
+            if culprits:
+                self._absorb_cohort_abort(
+                    batch_id, reqs, owned_set, culprits
+                )
+                _prune()
+                return
+            # retryable/protocol failure: emit nothing — durable redelivery
+            # retries each request (possibly down the per-session path)
+            log.warn("batch signing failed", batch=batch_id, error=str(e),
+                     node=node.node_id)
+            release_all()
+            _prune()
+
+        def _prune():
+            with self._lock:
+                if session in self._sessions:
+                    self._sessions.remove(session)
+                owned_ds = self._live_claims.pop(f"bsign:{batch_id}", None)
+                if owned_ds:
+                    self._settle_locked(owned_ds)
+            session.close()
+
+        session = Session(
+            session_id=f"bsign:{batch_id}",
+            party=party,
+            node_id=node.node_id,
+            participants=quorum,
+            transport=self.transport,
+            identity=node.identity,
+            broadcast_topic=f"bsign:broadcast:{batch_id}",
+            direct_topic_fn=lambda n: f"bsign:direct:{n}:{batch_id}",
+            on_done=on_done,
+            on_error=on_error,
+            hello_timeout_s=self.batch_patience_s,
+            send_patience_s=self.batch_patience_s,
+        )
+        with self._lock:
+            if self._closed:
+                release_all()
+                return
+            self._sessions.append(session)
+            # the session now owns the claims (this runner RETURNS while
+            # the rounds run for up to an hour); _prune hands them back
+            self._live_claims[f"bsign:{batch_id}"] = {
+                self._dedup_str("sign", k) for k in owned
+            }
+            self.batches_run += 1
+        session.listen()

@@ -1,0 +1,645 @@
+"""Transport-bound protocol session.
+
+Binds a transport-free protocol party (protocol/*) to the messaging fabric:
+outbound round messages are wrapped in signed envelopes and routed broadcast
+vs unicast (reference session.go:97-134); inbound envelopes are verified
+(Ed25519) before reaching the party (session.go:164-205); party state is
+mutex-guarded (the reference's update mutex, session.go:79).
+
+The reference's 1-second sleep barrier (event_consumer.go:173,325,484 — a
+TODO'd hack) is replaced by a real readiness handshake: each participant
+broadcasts a signed ``hello`` for the session and buffers protocol traffic
+until every quorum member has said hello; receiving a hello from a peer we
+haven't seen triggers a re-broadcast of our own, so late subscribers
+converge without polling.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, List, Optional, Sequence
+
+from ..identity.identity import IdentityStore
+from ..protocol.base import PartyBase, ProtocolError, RoundMsg
+from ..store.session_wal import SessionWALWriter
+from ..transport.api import Transport, TransportError
+from ..utils import log, tracing
+from ..utils.annotations import locked_by
+from ..wire import Envelope
+
+HELLO_ROUND = "__hello__"
+# broadcast by a crash-resumed participant: peers re-route their sent
+# history (broadcasts + unicasts addressed to the requester) so rounds the
+# dead process missed are redelivered — duplicates are protocol-legal
+# (identical-payload dedup in PartyBase._store)
+RESUME_ROUND = "__resume__"
+
+
+def _msg_to_json(m: RoundMsg) -> dict:
+    return {
+        "session_id": m.session_id,
+        "round": m.round,
+        "from_id": m.from_id,
+        "payload": m.payload,
+        "to": m.to,
+    }
+
+
+def _msg_from_json(d: dict) -> RoundMsg:
+    return RoundMsg(
+        d["session_id"], d["round"], d["from_id"], d["payload"], d.get("to")
+    )
+
+
+class SessionError(Exception):
+    def __init__(self, message: str, culprit: Optional[str] = None):
+        super().__init__(message)
+        self.culprit = culprit
+
+
+class RetryableSessionError(SessionError):
+    """Transient failure (e.g. quorum peers never said hello inside the
+    barrier deadline): the triggering event should be redelivered, not
+    surfaced as a terminal error — the reference's un-acked-redelivery
+    philosophy (event_consumer.go:276-280)."""
+
+
+# the PR 4 `_started`-published-before-`start()` race is exactly the shape
+# this declaration turns into a lint error (MPL301)
+@locked_by(
+    "_lock",
+    "_started",
+    "_start_claimed",
+    "_failed",
+    "_hellos",
+    "_buffer",
+    "_sent_raw",
+    "_finished",
+)
+class Session:
+    """One protocol run bound to topics.
+
+    ``broadcast_topic``: fan-out topic for this session; ``direct_topic_fn``:
+    node_id → unicast topic (reference TopicComposer, session.go:45-48).
+    """
+
+    def __init__(
+        self,
+        session_id: str,
+        party: PartyBase,
+        node_id: str,
+        participants: Sequence[str],
+        transport: Transport,
+        identity: IdentityStore,
+        broadcast_topic: str,
+        direct_topic_fn: Callable[[str], str],
+        on_done: Optional[Callable[[object], None]] = None,
+        on_error: Optional[Callable[[Exception], None]] = None,
+        hello_timeout_s: Optional[float] = 20.0,
+        send_patience_s: float = 0.0,
+        wal: Optional[SessionWALWriter] = None,
+        resumed: bool = False,
+        resume_fresh: bool = False,
+        resume_sent: Optional[Sequence[dict]] = None,
+        resume_envelopes: Optional[Sequence[bytes]] = None,
+    ):
+        self.session_id = session_id
+        self.party = party
+        self.node_id = node_id
+        self.participants = sorted(participants)
+        self.transport = transport
+        self.identity = identity
+        self.broadcast_topic = broadcast_topic
+        self.direct_topic_fn = direct_topic_fn
+        self.on_done = on_done
+        self.on_error = on_error
+        self._lock = threading.RLock()
+        self._subs: List = []
+        # a resumed session skips the hello barrier: its peers started long
+        # ago and will never re-hello; protocol traffic flows immediately
+        self._started = resumed
+        # one-shot claim that the quorum completed and start() is underway;
+        # _started flips only once start() has RUN (see _start_party)
+        self._start_claimed = resumed
+        self._failed = False
+        self._hellos = {node_id}
+        self._buffer: List[RoundMsg] = []
+        # crash-recovery WAL (None ⇒ feature off: no journaling, no extra
+        # state, transcript byte-identical to a WAL-less build)
+        self._wal = wal
+        self._resumed = resumed
+        self._resume_fresh = resume_fresh
+        self._resume_sent = list(resume_sent or [])
+        self._resume_envelopes = list(resume_envelopes or [])
+        self._replaying = False
+        # full outbound history (routing metadata + signed wire bytes),
+        # kept so a peer's __resume__ request can be answered verbatim
+        self._sent_raw: List[tuple] = []
+        self.created_at = time.monotonic()
+        self.last_activity = self.created_at
+        # mpctrace: every node derives the SAME trace id from the public
+        # session id, so merged cross-node views group without any
+        # coordination; wire context only refines parent/child edges
+        self._trace_id = tracing.trace_id_for(session_id)
+        self._trace_t0 = tracing.now_ns()
+        self._done_evt = threading.Event()
+        # one-shot claim for _finish, distinct from _done_evt: close() sets
+        # the event for waiters, which must not make a racing _finish skip
+        # its completion work (on_done + WAL drop)
+        self._finished = False
+        self.hello_timeout_s = hello_timeout_s
+        # extra unicast retry budget on TOP of the transport's own
+        # (3 s × 3 attempts, reference point2point.go:26-45). Batched
+        # DKG/signing sessions set this generously: a peer can be busy for
+        # minutes inside one round (comb tables, DLN verification) and an
+        # unacked send then means "receiver busy", not "receiver gone".
+        self.send_patience_s = send_patience_s
+        self._hello_timer: Optional[threading.Timer] = None
+        # unicasts go through a dedicated sender thread: an acked send can
+        # block for the whole patience budget, and doing that INSIDE a
+        # transport handler thread deadlocks the delivery pools (every
+        # worker waiting on a peer whose workers are likewise stuck)
+        import queue as _queue
+
+        self._out_q: "_queue.Queue" = _queue.Queue()
+        self._sender: Optional[threading.Thread] = None
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def listen(self) -> None:
+        """Subscribe broadcast + own direct topic, then announce readiness
+        (replaces ListenToIncomingMessageAsync + sleep barrier)."""
+        self._subs.append(
+            self.transport.pubsub.subscribe(self.broadcast_topic, self._on_raw)
+        )
+        self._subs.append(
+            self.transport.direct.listen(
+                self.direct_topic_fn(self.node_id), self._on_raw
+            )
+        )
+        self._sender = threading.Thread(
+            target=self._send_loop,
+            name=f"send-{self.session_id[:24]}",
+            daemon=True,
+        )
+        self._sender.start()
+        self._send_hello()
+        if self._resumed:
+            self._replay_resume()
+            return
+        # barrier deadline: a never-arriving quorum peer must fail the
+        # session RETRYABLY within the signing window, not sit buffered
+        # until the 30-minute GC (reference window: 30 s, sign_consumer.go:
+        # 16-20; the deadline here is per-session and shorter)
+        if self.hello_timeout_s is not None:
+            self._hello_timer = threading.Timer(
+                self.hello_timeout_s, self._hello_deadline
+            )
+            self._hello_timer.daemon = True
+            self._hello_timer.start()
+
+    def _hello_deadline(self) -> None:
+        with self._lock:
+            if self._start_claimed or self._failed:
+                return
+            # claim the failure INSIDE the same hold that checks the claim:
+            # a final hello racing the deadline must not both start and
+            # fail the session
+            self._failed = True
+            missing = sorted(set(self.participants) - self._hellos)
+        self._fail(
+            RetryableSessionError(
+                f"hello barrier timed out after {self.hello_timeout_s}s; "
+                f"missing: {missing}"
+            ),
+            _claimed=True,
+        )
+
+    def close(self) -> None:
+        if self._hello_timer is not None:
+            self._hello_timer.cancel()
+        for s in self._subs:
+            try:
+                s.unsubscribe()
+            except Exception:  # noqa: BLE001
+                pass
+        self._subs.clear()
+        # sentinel: the sender drains already-queued unicasts (peers may
+        # still need them) and exits
+        self._out_q.put(None)
+        # release the WAL file handle but KEEP the file: a close that isn't
+        # a completion (shutdown, GC reap) leaves the session resumable
+        if self._wal is not None:
+            self._wal.close()
+        # an external close of an unfinished session must not leave wait()
+        # callers blocking until their own timeout: signal them with a
+        # RETRYABLE failure (shutdown is not the protocol's fault, and the
+        # triggering event may legitimately be redelivered elsewhere)
+        with self._lock:
+            if self._done_evt.is_set():
+                return
+            if self._failed or self.party.done:
+                self._done_evt.set()
+                return
+            self._failed = True
+        self._done_evt.set()
+        if self.on_error:
+            try:
+                self.on_error(RetryableSessionError("session closed"))
+            except Exception as e:  # noqa: BLE001
+                log.error("on_error callback failed", error=repr(e))
+
+    def wait(self, timeout_s: float) -> bool:
+        return self._done_evt.wait(timeout_s)
+
+    @property
+    def done(self) -> bool:
+        return self.party.done
+
+    @property
+    def result(self):
+        return self.party.result
+
+    # -- outbound -----------------------------------------------------------
+
+    def _send_hello(self) -> None:
+        env = Envelope(
+            session_id=self.session_id,
+            round=HELLO_ROUND,
+            from_id=self.node_id,
+            payload={},
+        )
+        self.identity.sign_envelope(env)
+        self.transport.pubsub.publish(self.broadcast_topic, env.encode())
+
+    @staticmethod
+    def send_decline(
+        transport: Transport,
+        identity: IdentityStore,
+        node_id: str,
+        session_id: str,
+        broadcast_topic: str,
+        reason: str = "",
+    ) -> None:
+        """Signed 'not joining' announcement for a session this node will
+        never create (e.g. a batch it cannot serve yet). Peers waiting at
+        the hello barrier fail RETRYABLY at once instead of burning their
+        hello deadline — essential once deadlines are generous enough to
+        ride out long rounds (send_patience_s)."""
+        env = Envelope(
+            session_id=session_id,
+            round=HELLO_ROUND,
+            from_id=node_id,
+            payload={"bye": True, "reason": reason},
+        )
+        identity.sign_envelope(env)
+        transport.pubsub.publish(broadcast_topic, env.encode())
+
+    def _route(self, msgs: Sequence[RoundMsg]) -> None:
+        # outbound trace context: the ids of the round span this batch of
+        # messages came out of (None — and absent from the wire — when
+        # tracing is off, keeping envelope bytes identical to pre-trace)
+        ctx = tracing.wire_context()
+        for m in msgs:
+            env = Envelope(
+                session_id=m.session_id,
+                round=m.round,
+                from_id=m.from_id,
+                payload=m.payload,
+                to=m.to,
+                is_broadcast=m.is_broadcast,
+                trace=ctx,
+            )
+            self.identity.sign_envelope(env)
+            raw = env.encode()
+            with self._lock:
+                self._sent_raw.append((m.to, raw))
+            if m.is_broadcast:
+                self.transport.pubsub.publish(self.broadcast_topic, raw)
+            else:
+                # acked unicast, via the sender thread (see __init__ note)
+                self._out_q.put((m.to, raw))
+
+    # -- crash recovery -----------------------------------------------------
+
+    def _replay_resume(self) -> None:
+        """Rebuild the wire state of a crash-resumed session.
+
+        1. Re-route the full sent history from the WAL. Checkpoints are
+           written BEFORE their messages are routed, so any suffix of the
+           history may never have left the dead process; peers that did see
+           a message drop the duplicate.
+        2. Broadcast ``__resume__`` so peers re-route THEIR history — the
+           rounds they sent into the dead window are redelivered.
+        3. Re-deliver envelopes journaled after the last checkpoint (their
+           effect on party state was lost with the process).
+        """
+        try:
+            log.info("resuming session from WAL", session=self.session_id,
+                     node=self.node_id, sent=len(self._resume_sent),
+                     pending=len(self._resume_envelopes))
+            if self._resume_fresh:
+                # crash predated the first checkpoint: nothing was routed,
+                # so run start() now (it checkpoints before routing)
+                with self._lock:
+                    out = self.party.start()
+                    if self._wal is not None:
+                        self._checkpoint(out)
+                self._route(out)
+            self._route([_msg_from_json(d) for d in self._resume_sent])
+            env = Envelope(
+                session_id=self.session_id,
+                round=RESUME_ROUND,
+                from_id=self.node_id,
+                payload={},
+            )
+            self.identity.sign_envelope(env)
+            self.transport.pubsub.publish(self.broadcast_topic, env.encode())
+            pending, self._resume_envelopes = self._resume_envelopes, []
+            self._replaying = True
+            try:
+                for raw in pending:
+                    self._on_raw(raw)
+            finally:
+                self._replaying = False
+            # the checkpoint may already hold a finished party (crash landed
+            # between the final checkpoint and the result callback)
+            if self.party.done and not self._failed:
+                self._finish()
+        except Exception as e:  # noqa: BLE001
+            self._fail(e)
+
+    def _resend_history(self, requester: str) -> None:
+        """Answer a peer's ``__resume__``: re-publish every broadcast and
+        re-send the unicasts addressed to the requester, verbatim."""
+        with self._lock:
+            history = list(self._sent_raw)
+        if not history:
+            return
+        log.info("re-sending history for resumed peer",
+                 session=self.session_id, peer=requester, n=len(history))
+        for to, raw in history:
+            if to is None:
+                self.transport.pubsub.publish(self.broadcast_topic, raw)
+            elif to == requester:
+                self._out_q.put((to, raw))
+
+    def _checkpoint(self, out: Sequence[RoundMsg]) -> None:  # mpclint: holds=_lock
+        """Journal party state + this step's outputs. Called under the
+        session lock, BEFORE the outputs are routed: a resumed party must
+        re-send the exact payloads peers may already hold, never re-derive
+        fresh randomness for them (peers would flag equivocation)."""
+        try:
+            self._wal.checkpoint(
+                self.party.snapshot(), [_msg_to_json(m) for m in out]
+            )
+        except Exception as e:  # noqa: BLE001
+            # a stale WAL is worse than none: resuming from it would
+            # re-derive randomness for payloads peers already hold
+            # (equivocation). Disable recovery for this session, keep going.
+            log.warn("session WAL checkpoint failed — disabling recovery",
+                     session=self.session_id, error=repr(e))
+            try:
+                self._wal.drop()
+            except Exception:  # noqa: BLE001
+                pass
+            self._wal = None
+
+    def _send_loop(self) -> None:
+        while True:
+            item = self._out_q.get()
+            if item is None:
+                return
+            to, raw = item
+            # acked unicast (reference session.go:126, point2point.go:
+            # 26-45). With patience, the WHOLE budget rides one transport
+            # call: one delivery, waited on — never re-delivered to a busy
+            # receiver (duplicate floods starve shared delivery pools)
+            try:
+                if self.send_patience_s > 0:
+                    self.transport.direct.send(
+                        self.direct_topic_fn(to), raw,
+                        timeout_s=self.send_patience_s,
+                    )
+                else:
+                    self.transport.direct.send(self.direct_topic_fn(to), raw)
+            except TransportError as e:
+                if not self._failed and not self.party.done:
+                    self._fail(e)
+                return
+
+    # -- inbound ------------------------------------------------------------
+
+    def _on_raw(self, raw: bytes) -> None:
+        try:
+            env = Envelope.decode(raw)
+        except Exception as e:  # noqa: BLE001
+            log.warn("undecodable envelope dropped", session=self.session_id,
+                     error=repr(e))
+            return
+        if env.session_id != self.session_id:
+            return
+        if env.from_id == self.node_id:
+            return  # own broadcast echo
+        if env.from_id not in self.participants:
+            log.warn("message from non-participant dropped",
+                     session=self.session_id, sender=env.from_id)
+            return
+        if not self.identity.verify_envelope(env):
+            log.warn("BAD SIGNATURE on envelope — dropped",
+                     session=self.session_id, sender=env.from_id)
+            return
+        if env.round == HELLO_ROUND:
+            if env.payload.get("bye"):
+                with self._lock:
+                    if self._start_claimed or self._failed:
+                        return
+                    self._failed = True
+                if self._hello_timer is not None:
+                    self._hello_timer.cancel()
+                self.close()
+                if self.on_error:
+                    self.on_error(RetryableSessionError(
+                        f"peer {env.from_id} declined session "
+                        f"{self.session_id!r}: "
+                        f"{env.payload.get('reason', '')}"
+                    ))
+                return
+            self._on_hello(env.from_id)
+            return
+        if env.round == RESUME_ROUND:
+            # a peer came back from the dead: count it present and replay
+            # our history so the rounds it missed reach it again
+            self._on_hello(env.from_id)
+            self._resend_history(env.from_id)
+            return
+        # journal the verified envelope BEFORE delivery: if we die inside
+        # receive(), replay re-delivers it (re-deliveries during resume are
+        # already on disk — don't journal them twice)
+        if self._wal is not None and not self._replaying:
+            try:
+                self._wal.envelope(raw)
+            except Exception as e:  # noqa: BLE001
+                log.warn("session WAL append failed", session=self.session_id,
+                         error=repr(e))
+        msg = RoundMsg(
+            session_id=env.session_id,
+            round=env.round,
+            from_id=env.from_id,
+            payload=env.payload,
+            to=env.to,
+        )
+        parent = env.trace.get("s") if env.trace else None
+        with self._lock:
+            self.last_activity = time.monotonic()
+            if not self._started:
+                self._buffer.append(msg)
+                return
+        self._deliver(msg, parent=parent)
+
+    def _on_hello(self, from_id: str) -> None:
+        start_now = False
+        with self._lock:
+            if from_id not in self._hellos:
+                self._hellos.add(from_id)
+                # answer late joiners so they converge too
+                self._send_hello()
+            if (
+                not self._start_claimed
+                and not self._failed
+                and self._hellos >= set(self.participants)
+            ):
+                self._start_claimed = True
+                start_now = True
+        if start_now:
+            if self._hello_timer is not None:
+                self._hello_timer.cancel()
+            self._start_party()
+
+    def _start_party(self) -> None:
+        try:
+            # start() can burn SECONDS of CPU (ECDSA keygen: DLN proofs over
+            # big moduli) — run it OUTSIDE the lock so inbound deliveries
+            # buffer-and-ack instantly instead of pinning a transport worker
+            # until the sender's ack budget runs out. Only this thread
+            # touches the party until _started flips: every inbound message
+            # buffers while _started is False, so receive() cannot run
+            # before start() has, and start() runs exactly once
+            # (_start_claimed is a one-shot)
+            with tracing.span(
+                "round:start", trace_id=self._trace_id,
+                node=self.node_id, tid=self.session_id,
+            ):
+                out = self.party.start()
+                with self._lock:
+                    self._started = True
+                    buffered, self._buffer = self._buffer, []
+                    if self._wal is not None:
+                        # commit the start-time randomness (nonce
+                        # commitments, Shamir coefficients) before
+                        # anything leaves the node
+                        self._checkpoint(out)
+                    # routed under the lock, as in _deliver
+                    self._route(out)
+            for m in buffered:
+                self._deliver(m)
+        except Exception as e:  # noqa: BLE001
+            self._fail(e)
+
+    def _deliver(self, msg: RoundMsg, parent: Optional[str] = None) -> None:
+        try:
+            with tracing.span(
+                f"round:{msg.round}", trace_id=self._trace_id,
+                parent_id=parent, node=self.node_id, tid=self.session_id,
+                sender=msg.from_id,
+            ):
+                with self._lock:
+                    if self._failed or self.party.done:
+                        return
+                    out = self.party.receive(msg)
+                    finished = self.party.done
+                    if self._wal is not None and (out or finished):
+                        self._checkpoint(out)
+                    # route under the lock (the JAX package routes after
+                    # releasing it): otherwise a concurrent delivery can
+                    # complete the party, its owner closes the session,
+                    # and the sender's stop sentinel lands ahead of a
+                    # unicast still being queued here — the peer never
+                    # gets its last message. Routing signs and enqueues;
+                    # it never waits on a peer.
+                    self._route(out)
+            if finished:
+                self._finish()
+        except ProtocolError as e:
+            self._fail(e)
+        except Exception as e:  # noqa: BLE001
+            self._fail(e)
+
+    def _finish(self) -> None:
+        with self._lock:
+            if self._finished:
+                return
+            self._finished = True
+        tracing.emit(
+            "session", self._trace_t0, tracing.now_ns(),
+            node=self.node_id, tid=self.session_id,
+            trace_id=self._trace_id, outcome="ok", resumed=self._resumed,
+        )
+        log.info("session complete", session=self.session_id, node=self.node_id)
+        if self.on_done:
+            try:
+                self.on_done(self.party.result)
+            except Exception as e:  # noqa: BLE001
+                log.error("on_done callback failed", session=self.session_id,
+                          error=repr(e))
+                self._done_evt.set()
+                return  # keep the WAL: completion isn't durable yet
+        # drop the WAL only after on_done persisted its result — a crash
+        # before this line resumes into a done party and re-runs on_done
+        # (idempotent: share puts and result enqueues are keyed). A racing
+        # close() may have released the writer handle already: appends
+        # no-op on a closed writer and drop() unlinks by path, so the file
+        # still goes away.
+        if self._wal is not None:
+            try:
+                self._wal.done()
+                self._wal.drop()
+            except Exception:  # noqa: BLE001
+                pass
+        self._done_evt.set()
+
+    def _fail(self, e: Exception, _claimed: bool = False) -> None:
+        if not _claimed:
+            with self._lock:
+                if self._failed:
+                    return
+                self._failed = True
+        culprit = getattr(e, "culprit", None)
+        tracing.emit(
+            "session", self._trace_t0, tracing.now_ns(),
+            node=self.node_id, tid=self.session_id,
+            trace_id=self._trace_id, outcome="fail", error=type(e).__name__,
+        )
+        tracing.incident(
+            "session-fail", node=self.node_id, tid=self.session_id,
+            error=type(e).__name__, retryable=isinstance(e, RetryableSessionError),
+        )
+        log.error("session failed", session=self.session_id, node=self.node_id,
+                  error=str(e), culprit=culprit or "")
+        # a failed session must not resurrect at the next boot; only a hard
+        # crash (which never reaches _fail) leaves the WAL behind
+        if self._wal is not None:
+            try:
+                self._wal.drop()
+            except Exception:  # noqa: BLE001
+                pass
+        self._done_evt.set()
+        if self.on_error:
+            try:
+                self.on_error(e)
+            except Exception as cb_e:  # noqa: BLE001
+                log.error("on_error callback failed", error=repr(cb_e))
+
+    @property
+    def failed(self) -> bool:
+        return self._failed

@@ -37,7 +37,9 @@ PyTorch headers).
 Counters: ``launches`` counts launches of the single-product kernel,
 ``launches_by_width`` the same per limb width n;
 ``powmod_launches_by_mode_width`` counts powmod launches per
-(mode, n); ``plain_calls`` counts calls of either plain version.
+(mode, n); ``plain_calls`` counts calls of either plain version. They
+are updated under one lock, so parties on concurrent threads count
+exactly.
 """
 from __future__ import annotations
 
@@ -75,15 +77,19 @@ NVCC_FLAGS = [
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
+# the counters are bumped from every thread that runs a party (the nodes
+# of an in-process cluster sign concurrently): a bare += can lose counts
+_count_lock = threading.Lock()
 build_log = ""
 
 
 def reset_counters() -> None:
     global launches, plain_calls
-    launches = 0
-    plain_calls = 0
-    launches_by_width.clear()
-    powmod_launches_by_mode_width.clear()
+    with _count_lock:
+        launches = 0
+        plain_calls = 0
+        launches_by_width.clear()
+        powmod_launches_by_mode_width.clear()
 
 
 @dataclass(frozen=True)
@@ -216,8 +222,9 @@ def mulmod_cuda(a: torch.Tensor, b: torch.Tensor, c: MulmodConsts) -> torch.Tens
     )
     if rc != 0:
         raise RuntimeError(f"mulmod kernel launch failed: CUDA error {rc}")
-    launches += 1
-    launches_by_width[n] = launches_by_width.get(n, 0) + 1
+    with _count_lock:
+        launches += 1
+        launches_by_width[n] = launches_by_width.get(n, 0) + 1
     return out.reshape(shape)
 
 
@@ -225,7 +232,8 @@ def mulmod_plain(a: torch.Tensor, b: torch.Tensor, c: MulmodConsts) -> torch.Ten
     """The plain PyTorch version: float64 band product, lookahead carries
     and the Barrett reduction of ``modmul._reduce_impl`` (7-bit radix)."""
     global plain_calls
-    plain_calls += 1
+    with _count_lock:
+        plain_calls += 1
     return _mulmod_plain(a, b, c)
 
 
@@ -368,7 +376,8 @@ def powmod_cuda(x, digits: torch.Tensor, c: MulmodConsts, mode: str,
     if rc != 0:
         raise RuntimeError(f"powmod kernel launch failed: CUDA error {rc}")
     key = (mode, n)
-    powmod_launches_by_mode_width[key] = powmod_launches_by_mode_width.get(key, 0) + 1
+    with _count_lock:
+        powmod_launches_by_mode_width[key] = powmod_launches_by_mode_width.get(key, 0) + 1
     return out.reshape(L.shape + (n,))
 
 
@@ -403,7 +412,8 @@ def powmod_plain(x, digits: torch.Tensor, c: MulmodConsts, mode: str,
 
     if mode not in POWMOD_MODES:
         raise ValueError(f"powmod: mode {mode!r} not in {POWMOD_MODES}")
-    plain_calls += 1
+    with _count_lock:
+        plain_calls += 1
     n = c.n
     if mode == "comb":
         acc = None

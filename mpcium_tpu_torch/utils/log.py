@@ -1,0 +1,110 @@
+"""Structured logging (the zerolog analogue, reference pkg/logger).
+
+Key/value logging with dev (human console) and production (JSON lines)
+modes; errors carry stack info. Wraps stdlib logging so host applications
+can re-route handlers.
+"""
+from __future__ import annotations
+
+import json
+import logging
+import os
+import re
+import sys
+import time
+import traceback
+from typing import Any
+
+from . import tracing
+
+_logger = logging.getLogger("mpcium_tpu_torch")
+_production = False
+
+
+def init(production: bool | None = None, level: str = "INFO") -> None:
+    """Configure global logging. Dev → console k=v lines; production →
+    JSON lines on stderr (reference logger.go:12-27)."""
+    global _production
+    if production is None:
+        production = os.environ.get("MPCIUM_ENV") == "production"
+    _production = production
+    _logger.setLevel(getattr(logging, level.upper(), logging.INFO))
+    _logger.handlers.clear()
+    h = logging.StreamHandler(sys.stderr)
+    h.setFormatter(logging.Formatter("%(message)s"))
+    _logger.addHandler(h)
+    _logger.propagate = False
+
+
+def _emit(level: int, msg: str, kv: dict) -> None:
+    if not _logger.handlers:
+        init()
+    # log/trace correlation: when a span is open on this thread, every
+    # record carries its ids so a log line can be found in the trace
+    ids = tracing.current_ids()
+    if ids is not None:
+        kv.setdefault("trace_id", ids[0])
+        kv.setdefault("span_id", ids[1])
+    if _production:
+        record = {
+            "level": logging.getLevelName(level).lower(),
+            "time": time.time(),
+            "message": msg,
+            **{k: _safe(v) for k, v in kv.items()},
+        }
+        _logger.log(level, json.dumps(record, sort_keys=True))
+    else:
+        pairs = " ".join(f"{k}={_safe(v)}" for k, v in kv.items())
+        _logger.log(
+            level, f"{logging.getLevelName(level):<5} {msg}" + (f" | {pairs}" if pairs else "")
+        )
+
+
+def _is_secret_name(name: str) -> bool:
+    # lazy import: taxonomy is stdlib-only, but keep log importable
+    # without dragging the analysis package in at interpreter start
+    from ..analysis.taxonomy import is_secret_name
+
+    # the taxonomy tokenizer splits snake_case; type names are CamelCase
+    # (NonceShare), so de-camel before asking
+    snake = re.sub(r"(?<=[a-z0-9])(?=[A-Z])", "_", name)
+    return is_secret_name(name) or is_secret_name(snake)
+
+
+def _safe(v: Any):
+    if isinstance(v, bytes):
+        return v.hex()
+    if isinstance(v, (str, int, float, bool, type(None))):
+        return v
+    # refuse to repr() objects that look like key material: a type or
+    # attribute name hitting the secret taxonomy means the default repr
+    # could serialize secrets into a log line (MPL101's runtime twin)
+    tname = type(v).__name__
+    attr_names = list(getattr(v, "__dict__", ()) or ())
+    attr_names += [a for a in getattr(type(v), "__slots__", ()) or ()]
+    if _is_secret_name(tname) or any(_is_secret_name(a) for a in attr_names):
+        return f"<redacted:{tname}>"
+    return repr(v)
+
+
+def debug(msg: str, **kv) -> None:
+    _emit(logging.DEBUG, msg, kv)
+
+
+def info(msg: str, **kv) -> None:
+    _emit(logging.INFO, msg, kv)
+
+
+def warn(msg: str, **kv) -> None:
+    _emit(logging.WARNING, msg, kv)
+
+
+def error(msg: str, **kv) -> None:
+    """Adds caller stack context (reference logger.go:108)."""
+    kv.setdefault("stack", "".join(traceback.format_stack(limit=6)[:-1])[-400:])
+    _emit(logging.ERROR, msg, kv)
+
+
+def fatal(msg: str, **kv) -> None:
+    _emit(logging.CRITICAL, msg, kv)
+    raise SystemExit(1)

@@ -1,0 +1,219 @@
+"""Lightweight in-process metrics: counters, gauges, histograms.
+
+The serving front (batch scheduler, event consumer, soak harness) needs
+honest numbers — queue depth per lane, batch fill ratio, dispatch age,
+shed counts, end-to-end latency percentiles — without dragging in a
+metrics dependency. This module is deliberately tiny: thread-safe
+get-or-create by name, cheap O(1) updates on the hot path, and a
+``snapshot()`` dict suitable for JSON health surfaces and soak reports.
+
+Histograms keep exact count/sum/min/max plus a bounded reservoir of
+recent observations (default 8192) for percentile estimates; at soak
+scale that is a sliding-window percentile, which is what an SLO monitor
+wants anyway.
+"""
+from __future__ import annotations
+
+import math
+import threading
+from collections import deque
+from typing import Deque, Dict, Optional, Tuple
+
+
+class Counter:
+    """Monotonic counter. ``inc`` only; resets never."""
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self._lock = threading.Lock()
+        self._value = 0.0
+
+    def inc(self, amount: float = 1.0) -> None:
+        if amount < 0:
+            raise ValueError("counters only go up")
+        with self._lock:
+            self._value += amount
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+
+class Gauge:
+    """Instantaneous value. ``set``/``inc``/``dec``."""
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self._lock = threading.Lock()
+        self._value = 0.0
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+    def inc(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self._value += amount
+
+    def dec(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self._value -= amount
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+
+class Histogram:
+    """Exact count/sum/min/max + bounded reservoir for percentiles.
+
+    The reservoir is a deque of the most recent ``reservoir`` samples —
+    a sliding window, not uniform sampling. For SLO latency monitoring
+    the recent window is the interesting one.
+    """
+
+    def __init__(self, name: str, reservoir: int = 8192) -> None:
+        self.name = name
+        self._lock = threading.Lock()
+        self.count = 0
+        self.sum = 0.0
+        self.min: Optional[float] = None
+        self.max: Optional[float] = None
+        self._samples: Deque[float] = deque(maxlen=reservoir)
+
+    def observe(self, value: float) -> None:
+        v = float(value)
+        with self._lock:
+            self.count += 1
+            self.sum += v
+            if self.min is None or v < self.min:
+                self.min = v
+            if self.max is None or v > self.max:
+                self.max = v
+            self._samples.append(v)
+
+    @staticmethod
+    def _rank(ordered, q: float) -> Optional[float]:
+        if not ordered:
+            return None
+        rank = max(1, math.ceil(q / 100.0 * len(ordered)))
+        return ordered[rank - 1]
+
+    def summary(self) -> Dict[str, Optional[float]]:
+        # one lock acquisition, one reservoir copy, ONE sort for all
+        # three quantiles
+        with self._lock:
+            count, total = self.count, self.sum
+            lo, hi = self.min, self.max
+            ordered = sorted(self._samples)
+        return {
+            "count": count,
+            "sum": total,
+            "min": lo,
+            "max": hi,
+            "mean": (total / count) if count else None,
+            "p50": self._rank(ordered, 50),
+            "p90": self._rank(ordered, 90),
+            "p99": self._rank(ordered, 99),
+        }
+
+
+class MetricsRegistry:
+    """Thread-safe get-or-create registry.
+
+    Names are flat dotted strings (``scheduler.shed_total``); a name is
+    bound to one metric type for its lifetime — asking for the same name
+    as a different type raises, because that is always a bug.
+    """
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._metrics: Dict[str, object] = {}
+
+    def _get_or_create(self, name: str, cls, **kw):
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = cls(name, **kw)
+                self._metrics[name] = m
+            elif not isinstance(m, cls):
+                raise TypeError(
+                    f"metric {name!r} already registered as "
+                    f"{type(m).__name__}, not {cls.__name__}"
+                )
+            return m
+
+    def counter(self, name: str) -> Counter:
+        return self._get_or_create(name, Counter)
+
+    def gauge(self, name: str) -> Gauge:
+        return self._get_or_create(name, Gauge)
+
+    def histogram(self, name: str, reservoir: int = 8192) -> Histogram:
+        return self._get_or_create(name, Histogram, reservoir=reservoir)
+
+    def get(self, name: str) -> Optional[object]:
+        with self._lock:
+            return self._metrics.get(name)
+
+    def snapshot(self) -> Dict[str, Dict[str, object]]:
+        """JSON-ready dict grouped by type: ``counters``/``gauges`` →
+        name → float, ``histograms`` → name → summary dict."""
+        with self._lock:
+            items: Tuple[Tuple[str, object], ...] = tuple(self._metrics.items())
+        out: Dict[str, Dict[str, object]] = {
+            "counters": {}, "gauges": {}, "histograms": {},
+        }
+        for name, m in sorted(items):
+            if isinstance(m, Histogram):
+                out["histograms"][name] = m.summary()
+            elif isinstance(m, Counter):
+                out["counters"][name] = m.value
+            else:
+                out["gauges"][name] = m.value  # type: ignore[union-attr]
+        return out
+
+    def to_prometheus(self, labels: Optional[Dict[str, str]] = None) -> str:
+        """Prometheus text exposition (format 0.0.4): counters and
+        gauges as-is, histograms as summaries with ``quantile`` labels
+        plus ``_count``/``_sum``. Dots in names become underscores;
+        ``labels`` (e.g. ``{"node": "node0"}``) are applied to every
+        sample so per-node texts can be concatenated."""
+        base = dict(labels or {})
+        with self._lock:
+            items: Tuple[Tuple[str, object], ...] = tuple(self._metrics.items())
+
+        def fmt(name: str, value: float, extra: Optional[Dict[str, str]] = None) -> str:
+            lbl = {**base, **(extra or {})}
+            body = ",".join(f'{k}="{_escape(v)}"' for k, v in sorted(lbl.items()))
+            return f"{name}{{{body}}} {value}" if body else f"{name} {value}"
+
+        lines = []
+        for name, m in sorted(items):
+            pname = _prom_name(name)
+            if isinstance(m, Counter):
+                lines.append(f"# TYPE {pname} counter")
+                lines.append(fmt(pname, m.value))
+            elif isinstance(m, Gauge):
+                lines.append(f"# TYPE {pname} gauge")
+                lines.append(fmt(pname, m.value))
+            elif isinstance(m, Histogram):
+                s = m.summary()
+                lines.append(f"# TYPE {pname} summary")
+                for q, key in (("0.5", "p50"), ("0.9", "p90"), ("0.99", "p99")):
+                    if s[key] is not None:
+                        lines.append(fmt(pname, s[key], {"quantile": q}))
+                lines.append(fmt(f"{pname}_count", s["count"] or 0))
+                lines.append(fmt(f"{pname}_sum", s["sum"] or 0.0))
+        return "\n".join(lines) + ("\n" if lines else "")
+
+
+def _prom_name(name: str) -> str:
+    out = "".join(c if c.isalnum() or c in "_:" else "_" for c in name)
+    return out if not out[:1].isdigit() else f"_{out}"
+
+
+def _escape(v: str) -> str:
+    return str(v).replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")

@@ -37,6 +37,15 @@ def test_the_guard_sees_every_port_module_and_every_import_form(tmp_path):
     assert "chip_smoke.py" in names
     assert {"mpcium_tpu_torch/protocol/resharing.py", "mpcium_tpu_torch/protocol/base.py",
             "mpcium_tpu_torch/ops/mulmod.py"} <= names
+    # the serving slice: the JAX package's modules of the same paths
+    serving = ["wire", "utils/annotations", "utils/log", "utils/metrics", "utils/tracing",
+               "core/softcrypto", "identity/identity", "transport/api", "transport/loopback",
+               "store/kvstore", "store/keyinfo", "store/session_wal", "registry/registry",
+               "config", "node/session", "node/node", "consumers/signing_consumer",
+               "consumers/event_consumer", "consumers/batch_scheduler", "client/client",
+               "cluster", "analysis/taxonomy"]
+    assert {f"mpcium_tpu_torch/{m}.py" for m in serving} <= names
+    assert all((ROOT / "mpcium_tpu" / f"{m}.py").is_file() for m in serving)
     sample = tmp_path / "sample.py"
     sample.write_text("import jax.numpy as jnp\n"
                       "def f():\n"

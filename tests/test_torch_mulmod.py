@@ -140,3 +140,31 @@ def test_kernel_matches_plain_on_gpu():
         assert bn.batch_from_limbs(got, ctx.prof) == [
             full * half % m, full * full % m, full * half % m,
         ]
+
+
+def test_counters_are_exact_under_concurrent_threads():
+    """The nodes of an in-process cluster sign on concurrent threads:
+    every plain call made from eight threads at once is counted."""
+    import threading
+
+    m, av, bv = _operands(256, seed=11)
+    ctx = mm.MXUBarrett(m, device="cpu")
+    a, b = _limbs(av, ctx.prof), _limbs(bv, ctx.prof)
+    want = [x * y % m for x, y in zip(av, bv)]
+    calls, errors = 150, []
+    start = threading.Barrier(8)
+
+    def work():
+        start.wait()
+        for _ in range(calls):
+            if bn.batch_from_limbs(K.mulmod(a, b, ctx._kc), ctx.prof) != want:
+                errors.append("wrong product")
+
+    K.reset_counters()
+    threads = [threading.Thread(target=work) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors
+    assert (K.plain_calls, K.launches) == (8 * calls, 0)
