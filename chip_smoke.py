@@ -121,9 +121,12 @@ resharing do not):
     ``BatchedECDSASigningParty`` (K0's counters zeroed just before: both
     entries at both widths, every powmod mode of the path, no plain
     call); ``BatchedReshareParty`` rotates to node0–node2 (t=1, epoch 1,
-    keys unchanged, K0 reads 0); node1 + node2 sign LIFECYCLE_B digests with the new
-    shares. Every ok true, the parties agree, every signature verified
-    on the host; seconds per runner round and per party phase.
+    keys unchanged, K0 reads 0); node1 + node2 sign LIFECYCLE_B digests
+    with the new shares. Every ok true, the parties agree, every
+    signature verified on the host; seconds per runner round and per
+    party phase. The phase runs on a spawned process of its own (niced;
+    its K0 counters are its own), started after phase 3 beside phases 24
+    and 25 and joined after phase 23, where its line is printed.
 20. eddsa_dkg — three ed25519 ``BatchedDKGParty`` create LIFECYCLE_B
     wallets (K0 reads 0), and ``BatchedEDDSASigningParty`` node0 + node1 sign with
     them: every ok true, every signature verified on the host.
@@ -167,30 +170,64 @@ batched parties on the card):
     the 2048-bit fixture, full ``Domains()``, ``min_paillier_bits``
     2046, ``device="cuda"``, the deployment settings of
     ``SERVING_CFG``): SERVING_W wallets created in one burst (one ``kg``
-    batch per node: both curves' DKG parties; K0 reads 0), SERVING_W
+    batch per node: both curves' DKG parties; K0 reads 0), then SERVING_W
     ECDSA and SERVING_W EdDSA signs in one burst (one batch per curve per
     node; K0's counters zeroed just before must show both entries at
-    both widths, every powmod mode of the path, no plain call), every
-    wallet rotated on both curves (t=1, epoch 1, keys kept; K0 reads 0)
-    and signed again. Every signature verified on the host against the
-    keygen events' keys; on every node ``scheduler.fallback_total``,
-    ``shed_total``, ``quarantined_total`` and ``declined_total`` read 0,
-    each stage grew ``batches_run`` by the batches it needs, the batches
-    dispatched in a stage add up to its burst, and no session failed or
-    ran outside a batch (on the per-session path, on the host). The
-    line gives per stage the wall from the first submit to the last
-    result, each node's intake time, wallets/s and sigs/s, the batch
-    sizes, the party rounds' and phases' seconds (spans, summed over the
-    nodes) and the thread-seconds of envelope crypto (Ed25519) and store
-    crypto (ChaCha20-Poly1305). The phase runs on a spawned process of
-    its own (niced; its K0 counters are its own), started after phase 3
-    so it overlaps phases 4–23 and never the kernel timings, and joined
-    after phase 23; the main process verifies its signatures and prints
-    its lines with the wait at the join.
+    both widths, every powmod mode of the path, no plain call). The
+    phase is cut to create → sign (``reduced``): phase 25 rotates and
+    signs again across processes. Every signature verified on the
+    host against the keygen events' keys; on every node
+    ``scheduler.fallback_total``, ``shed_total``, ``quarantined_total``
+    and ``declined_total`` read 0, each stage grew ``batches_run`` by the
+    batches it needs, the batches dispatched in a stage add up to its
+    burst, and no session failed or ran outside a batch (on the
+    per-session path, on the host). The line gives per stage the wall
+    from the first submit to the last result, each node's intake time,
+    wallets/s and sigs/s, the batch sizes, the party rounds' and phases'
+    seconds (spans, summed over the nodes) and the thread-seconds of
+    envelope crypto (Ed25519) and store crypto (ChaCha20-Poly1305). The
+    phase runs on a spawned process of its own (niced; its K0 counters
+    are its own), started after phase 3 so it overlaps phases 4–23 and
+    never the kernel timings, and joined after phase 23; the main process
+    verifies its signatures and prints its lines with the wait at the
+    join.
+
+The networked deployment (the same node stack as separate processes
+over an encrypted TCP broker, driven through ``RemoteCluster``):
+
+25. deployment — the port's ops CLI bootstraps a workspace
+    (``generate-peers -n 3``, ``register-peers`` into the broker's
+    control plane, ``generate-identity`` per node, ``generate-initiator``);
+    ``python -m mpcium_tpu_torch.cli.main broker --encrypt --journal …``
+    and three ``… start -n nodeN`` run as processes of their own (the
+    daemons on their default device, the GPU; each builds K0 at its first
+    launch), with ``control_plane: broker``, the token in
+    ``MPCIUM_BROKER_TOKEN``, the copy of the safe-prime pool, phase 24's
+    batching settings and ``reply_timeout_s`` 900 in ``config.yaml``.
+    Through ``RemoteCluster``: DEPLOY_W wallets created in one burst,
+    DEPLOY_W ECDSA + DEPLOY_W EdDSA signs, every wallet rotated on both
+    curves (t=1, epoch 1 in the broker's keyinfo, keys kept) and signed
+    again. Read from ``health/<node>`` in the broker KV after each stage:
+    every node ran the batches the stage needs, the requests its leaders
+    dispatched add up to the burst, fallback, shed, quarantine and
+    declined read 0, each node's K0 gauges grew across each sign stage
+    (both entries at both widths, every powmod mode of the path, no plain
+    call) and stayed put around create and reshare, and at the end the
+    ``compile`` section reads ready with the K0 build entry (cache hit or
+    miss). No result may be a timeout and no dead letter may arrive.
+    Then SIGTERM to every daemon and to the broker: each must exit 0
+    within 30 s, and node0's flight recorder (written at shutdown) must
+    pass ``trace.validate_chrome``. Its client runs on a spawned process
+    of its own beside phase 24's and touches no device; the main process
+    verifies every signature and prints the stage lines and the phase
+    line with phase 24's walls beside it.
 
 Every host verification runs the port's python-int verifiers over all
 signatures, spread over a pool of worker processes (one per host core).
-The kernels line's launch counts are phase 19's first party sign.
+The kernels line's launch counts are phase 19's first party sign. Every
+phase line carries ``t_s``, the seconds since main() started when it was
+printed; a phase run by a child process adds ``t_start_s`` and
+``t_end_s`` on the same clock, and each of its stages ``t_end_s``.
 
 Then the script's wall time, a ``{"kernels": [...]}`` line, the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -239,8 +276,32 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
+T0_ENV = "CHIP_SMOKE_T0"  # main()'s start on CLOCK_MONOTONIC, inherited by its children
+
+
+def since_start() -> float:
+    """Seconds since main() started. CLOCK_MONOTONIC is one clock for all
+    the processes of a run, so a child's readings line up with the main
+    process's."""
+    return time.monotonic() - float(os.environ.setdefault(T0_ENV, repr(time.monotonic())))
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line carries ``t_s``, the seconds
+    since main() started when it was printed."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": since_start()}
     print(json.dumps(obj), flush=True)
+
+
+def spawned_pool(workers: int = 1, nice: int = 10):
+    """A pool of spawned worker processes (they import this file, not the
+    main process's state), niced so the main process keeps priority."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    return ProcessPoolExecutor(max_workers=workers, initializer=os.nice, initargs=(nice,),
+                               mp_context=multiprocessing.get_context("spawn"))
 
 
 # ---------------------------------------------------------------------------
@@ -256,11 +317,7 @@ def host_pool():
     the card) and shut down at the end of main()."""
     global _POOL
     if _POOL is None:
-        import multiprocessing
-        from concurrent.futures import ProcessPoolExecutor
-
-        _POOL = ProcessPoolExecutor(max_workers=os.cpu_count() or 1,
-                                    mp_context=multiprocessing.get_context("spawn"))
+        _POOL = spawned_pool(os.cpu_count() or 1, 0)
     return _POOL
 
 
@@ -1268,7 +1325,9 @@ def _party_sign(sid, quorum, shares_by_pid, digests, seed, K, run_protocol, dev)
 
 def run_wallet_lifecycle(B: int, seed: int, K, dev: str = "cuda"):
     """DKG → GG18 sign → reshare → sign, as distributed parties through
-    run_protocol on the 2048-bit fixture with full Domains()."""
+    run_protocol on the 2048-bit fixture with full Domains() → (the phase
+    record, K0's counts over the first sign); :func:`check_lifecycle`
+    holds them to the phase's checks."""
     import numpy as np
 
     from mpcium_tpu_torch.cluster import load_test_preparams
@@ -1310,19 +1369,25 @@ def run_wallet_lifecycle(B: int, seed: int, K, dev: str = "cuda"):
     digests2 = [r.tobytes() for r in drng.integers(0, 256, (B, 32), dtype=np.uint8)]
     sign2, _ = _party_sign(f"{sid}-sign2", ["node1", "node2"], new, digests2, seed + 80, K,
                            run_protocol, dev)
-    emit({"phase": "wallet_lifecycle", "B": B, "fixture": "test_preparams.json (2048-bit)",
-          "domains": "Domains()", "cohorts": COHORTS,
-          "dkg": {"parties": UNIVERSE, "wall_s": dkg_s, "wallets_per_s": B / dkg_s,
-                  "seconds_by_round": dkg_rounds, "seconds_by_phase": dkg_phases,
-                  "k0": dkg_k0},
-          "material_digest_equal": digest_equal, "sign": sign1,
-          "reshare": {"old_quorum": old, "new_committee": UNIVERSE, "t_new": 1,
-                      "wall_s": rs_s, "wallets_per_s": B / rs_s,
-                      "public_keys_unchanged_epoch_1": kept,
-                      "seconds_by_round": rs_rounds, "seconds_by_phase": rs_phases,
-                      "k0": rs_k0},
-          "sign_after_reshare": sign2})
-    if not digest_equal or not kept:
+    return {"phase": "wallet_lifecycle", "B": B, "fixture": "test_preparams.json (2048-bit)",
+            "domains": "Domains()", "cohorts": COHORTS,
+            "dkg": {"parties": UNIVERSE, "wall_s": dkg_s, "wallets_per_s": B / dkg_s,
+                    "seconds_by_round": dkg_rounds, "seconds_by_phase": dkg_phases,
+                    "k0": dkg_k0},
+            "material_digest_equal": digest_equal, "sign": sign1,
+            "reshare": {"old_quorum": old, "new_committee": UNIVERSE, "t_new": 1,
+                        "wall_s": rs_s, "wallets_per_s": B / rs_s,
+                        "public_keys_unchanged_epoch_1": kept,
+                        "seconds_by_round": rs_rounds, "seconds_by_phase": rs_phases,
+                        "k0": rs_k0},
+            "sign_after_reshare": sign2}, k0
+
+
+def check_lifecycle(rec: dict, k0: dict) -> None:
+    """Phase 19's checks: equal material digests, every key kept at epoch
+    1, and the first sign launched both entries at both widths and every
+    powmod mode of the path, with no plain call."""
+    if not rec["material_digest_equal"] or not rec["reshare"]["public_keys_unchanged_epoch_1"]:
         raise AssertionError("lifecycle: material digests differ or the reshare moved keys")
     for n in (320, 608):
         if k0["mulmod_by_width"].get(n, 0) == 0:
@@ -1332,6 +1397,47 @@ def run_wallet_lifecycle(B: int, seed: int, K, dev: str = "cuda"):
             raise AssertionError(f"no powmod launch of {key} during the party sign")
     if k0["plain_calls"]:
         raise AssertionError(f"a plain version ran {k0['plain_calls']}x on the card")
+
+
+_LIFECYCLE_POOL = None
+
+
+def _lifecycle_task(B: int, seed: int):
+    """Phase 19 in a process of its own (its K0 counters are its own)."""
+    import torch
+
+    from mpcium_tpu_torch.ops import mulmod as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    K.build()
+    t0 = since_start()
+    try:
+        rec, k0 = run_wallet_lifecycle(B, seed, K)
+    finally:
+        if _POOL is not None:
+            _POOL.shutdown()
+    rec.update(t_start_s=t0, t_end_s=since_start())
+    return rec, k0
+
+
+def start_lifecycle(B: int, seed: int):
+    """Start phase 19 on a spawned process, niced like phase 24's; it
+    overlaps the phases after the kernel timings."""
+    global _LIFECYCLE_POOL
+    _LIFECYCLE_POOL = spawned_pool()
+    return _LIFECYCLE_POOL.submit(_lifecycle_task, B, seed), time.perf_counter()
+
+
+def join_lifecycle(future, t_submit: float) -> dict:
+    """Wait for phase 19, print its line and hold it to its checks → K0's
+    counts over its first sign (the kernels line's launches)."""
+    t0 = time.perf_counter()
+    rec, k0 = future.result()
+    wait_s = time.perf_counter() - t0
+    _LIFECYCLE_POOL.shutdown()
+    emit({**rec, "overlapped": True, "join_wait_s": wait_s,
+          "since_submit_s": time.perf_counter() - t_submit})
+    check_lifecycle(rec, k0)
     return k0
 
 
@@ -1447,12 +1553,7 @@ def start_session_ecdsa(seed: int):
     niced so the main process's host work keeps priority; the GPU phases
     run while they do."""
     global _SESSION_POOL
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
-    _SESSION_POOL = ProcessPoolExecutor(max_workers=SESSION_W, initializer=os.nice,
-                                        initargs=(10,),
-                                        mp_context=multiprocessing.get_context("spawn"))
+    _SESSION_POOL = spawned_pool(SESSION_W)
     return [_SESSION_POOL.submit(_session_wallet, w, seed) for w in range(SESSION_W)], \
         time.perf_counter()
 
@@ -1620,7 +1721,7 @@ def run_session_eddsa(seed: int, dev: str = "cuda") -> None:
 # phase 24: the serving path — a LocalCluster of three nodes over loopback
 # ---------------------------------------------------------------------------
 
-SERVING_W = 64  # wallets created, signed, rotated and signed again per curve
+SERVING_W = 64  # wallets created and signed per curve
 SERVING_WINDOW_S = 10.0
 
 
@@ -1721,12 +1822,11 @@ def _burst(subscribe, fire, key, n: int, what: str, intake=None, t_limit: float 
 def serving_run(W: int, seed: int, K, dev: str = "cuda") -> dict:
     """Phase 24's cluster work: LocalCluster(3 nodes, t=1, batch_signing,
     device=dev) on the 2048-bit fixture, full Domains(); through the
-    client W wallets created (one kg batch: both curves), W ECDSA and W
-    EdDSA signs, a reshare of every wallet on both curves (t=1, epoch 1)
-    and W + W signs with the rotated shares. Fails unless every result
-    succeeds, K0 reads 0 around create and reshare and shows launches of
-    both entries at both widths and every powmod mode (no plain call)
-    around the signs, every stage grows each node's batches by what it
+    client W wallets created (one kg batch: both curves), then W ECDSA
+    and W EdDSA signs (phase 25 rotates and signs again, across
+    processes). Fails unless every result succeeds, K0 reads 0 around
+    create and shows launches of both entries at both widths and every
+    powmod mode (no plain call) around the signs, every stage grows each node's batches by what it
     needs, its dispatches add up to its burst, no scheduler declines a
     request and no session fails or runs outside a batch. → the phase
     record and the signatures,
@@ -1749,13 +1849,14 @@ def serving_run(W: int, seed: int, K, dev: str = "cuda") -> dict:
     for name in ("_seal", "_open"):
         clock.wrap(EncryptedFileKV, name, "store")
     spans: list = []
-    tracing.enable(spans.append)
     root = ROOT / "build" / f"serving-{seed}-{os.getpid()}"
     t_up = time.perf_counter()
     cluster = LocalCluster(n_nodes=3, threshold=1, root_dir=str(root),
                            preparams=load_test_preparams(2048), batch_signing=True,
                            device=dev, **SERVING_CFG)
     up_s = time.perf_counter() - t_up
+    # the phase's own sink in place of the flight recorder the cluster armed
+    tracing.enable(spans.append)
     stages, checks = {}, {}
     try:
         client = cluster.client
@@ -1800,7 +1901,8 @@ def serving_run(W: int, seed: int, K, dev: str = "cuda") -> dict:
                 if into is not None:
                     into[nm] = into.get(nm, 0.0) + (sp["t1_ns"] - sp["t0_ns"]) / 1e9
             stages[name] = rec = {
-                "wall_s": wall, "settle_s": settle_s, "results": len(got),
+                "wall_s": wall, "t_end_s": since_start(), "settle_s": settle_s,
+                "results": len(got),
                 "intake_s_by_node": taken_in, "batches_by_node": grown,
                 "batch_sizes": sorted(sizes), "failed_sessions": failed,
                 "declined_by_node": declined, "per_session_runs": single,
@@ -1872,23 +1974,6 @@ def serving_run(W: int, seed: int, K, dev: str = "cuda") -> dict:
             return k0
 
         k0_sign = sign_stage("sign", "s1")
-        rs, _, _, _ = stage(
-            "reshare", client.on_resharing_result,
-            lambda: [client.resharing(w, 1, kt) for kt in ("secp256k1", "ed25519")
-                     for w in wallets],
-            lambda ev: (ev.wallet_id, ev.key_type), 2 * W, "rs", 2, True)
-        pubs = {"secp256k1": secp_pubs, "ed25519": ed_pubs}
-        bad = [k for k, ev in rs.items() if ev.result_type != wire.RESULT_SUCCESS
-               or bytes.fromhex(ev.pub_key) != pubs[k[1]][wallets.index(k[0])]]
-        if bad:
-            raise AssertionError(f"serving reshare: {bad[0]}: {rs[bad[0]].error_reason}")
-        epochs = {f"{nid}/{kt}": sorted({node.load_share(kt, w).epoch for w in wallets})
-                  for nid, node in cluster.nodes.items() for kt in pubs}
-        if any(e != [1] for e in epochs.values()):
-            raise AssertionError(f"serving reshare: epochs {epochs}")
-        stages["reshare"]["keys_kept_epoch_1"] = True
-        stages["reshare"]["wallets_per_s"] = W / stages["reshare"]["wall_s"]
-        k0_sign2 = sign_stage("sign_after_reshare", "s2")
         health = cluster.health()
         counters = {nid: {k: h["metrics"]["counters"].get(f"scheduler.{k}", 0.0)
                           for k in ("fallback_total", "shed_total", "quarantined_total",
@@ -1900,6 +1985,13 @@ def serving_run(W: int, seed: int, K, dev: str = "cuda") -> dict:
                or c["declined_total"] for c in counters.values()):
             raise AssertionError(f"serving: the scheduler fell back, shed, quarantined or "
                                  f"declined: {counters}")
+        reduced = {"SERVING_W": f"{W}: every batched party's cost is fixed per batch "
+                   "(DLN proofs, comb tables) and the B=1,024 batches of the same "
+                   "parties are measured in phases 13, 14 and 19; the host crypto of "
+                   "intake and share storage grows with W",
+                   "depth": "create -> sign: the reshare and the second sign run across "
+                   "processes in phase 25 (deployment), which overlaps this phase inside "
+                   "the script's time limit"}
         record = {
             "phase": "serving", "nodes": cluster.node_ids, "threshold": 1, "wallets": W,
             "fixture": "test_preparams.json (2048-bit)", "domains": "Domains()",
@@ -1908,11 +2000,7 @@ def serving_run(W: int, seed: int, K, dev: str = "cuda") -> dict:
                             if identity.Ed25519PrivateKey.__module__.startswith("cryptography")
                             else "softcrypto"),
             "cluster_settings": SERVING_CFG, "cluster_up_s": up_s, "scheduler": counters,
-            "k0_sign": _k0_json(k0_sign), "k0_sign_after_reshare": _k0_json(k0_sign2),
-            "reduced": {"SERVING_W": f"{W}: every batched party's cost is fixed per batch "
-                        "(DLN proofs, comb tables) and the B=1,024 batches of the same "
-                        "parties are measured in phases 13, 14 and 19; the host crypto of "
-                        "intake and share storage grows with W"}}
+            "k0_sign": _k0_json(k0_sign), "reduced": reduced}
         return {"record": record, "stages": stages, "checks": checks}
     finally:
         tracing.disable()
@@ -1921,9 +2009,10 @@ def serving_run(W: int, seed: int, K, dev: str = "cuda") -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def serving_finish(res: dict, extra: dict) -> None:
-    """Verify every signature of phase 24 on the host pool, print a line
-    per stage and the phase line; fail unless all verify."""
+def serving_finish(res: dict, extra: dict, phase: str = "serving") -> None:
+    """Verify every signature of phase 24 (or 25: ``phase``) on the host
+    pool, print a line per stage and the phase line; fail unless all
+    verify."""
     verified = {}
     for name, c in res["checks"].items():
         th = time.perf_counter()
@@ -1933,12 +2022,12 @@ def serving_finish(res: dict, extra: dict) -> None:
                                     "host_verify_s": time.perf_counter() - th})
         verified[name] = (v_ec, v_ed, len(c["r"]), len(c["sigs"]))
     for name, rec in res["stages"].items():
-        emit({"phase": "serving_stage", "stage": name, **rec})
+        emit({"phase": f"{phase}_stage", "stage": name, **rec})
     emit({**res["record"], **extra,
           "stage_walls_s": {k: v["wall_s"] for k, v in res["stages"].items()}})
     bad = {k: v for k, v in verified.items() if v[0] != v[2] or v[1] != v[3]}
     if bad:
-        raise AssertionError(f"serving: signatures failed host verification: {bad}")
+        raise AssertionError(f"{phase}: signatures failed host verification: {bad}")
 
 
 _SERVING_POOL = None
@@ -1953,9 +2042,10 @@ def _serving_task(W: int, seed: int) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     K.build()
-    t0 = time.perf_counter()
+    t0, t_start = time.perf_counter(), since_start()
     res = serving_run(W, seed, K)
-    res["record"]["phase_s"] = time.perf_counter() - t0
+    res["record"].update(phase_s=time.perf_counter() - t0, t_start_s=t_start,
+                         t_end_s=since_start())
     return res
 
 
@@ -1963,11 +2053,7 @@ def start_serving(W: int, seed: int):
     """Start phase 24 on a spawned process, niced so the main process
     keeps priority; it overlaps the phases after the kernel timings."""
     global _SERVING_POOL
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
-    _SERVING_POOL = ProcessPoolExecutor(max_workers=1, initializer=os.nice, initargs=(10,),
-                                        mp_context=multiprocessing.get_context("spawn"))
+    _SERVING_POOL = spawned_pool()
     return _SERVING_POOL.submit(_serving_task, W, seed), time.perf_counter()
 
 
@@ -1981,8 +2067,229 @@ def join_serving(future, t_submit: float) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the networked deployment — a broker and three daemon processes
+# ---------------------------------------------------------------------------
+
+DEPLOY_W = 64  # wallets created, signed, rotated and signed again per curve
+# the daemons' batching settings: phase 24's (SERVING_CFG) as config keys
+DEPLOY_CFG = {k: v for k, v in SERVING_CFG.items() if k != "hello_timeout_s"}
+HEALTH_KEYS = ("fallback_total", "shed_total", "quarantined_total", "declined_total",
+               "batches_fired_total", "submitted_total")
+
+
+def _health_delta(h0: dict, h1: dict) -> dict:
+    """Per node: batches run, batches fired and requests dispatched as
+    leader, the scheduler counters, and K0's gauges, grown between two
+    health snapshots."""
+    out = {}
+    for nid, s1 in h1.items():
+        s0 = h0[nid]
+
+        def grew(kind, name, s0=s0, s1=s1):
+            return s1["metrics"][kind].get(name, 0.0) - s0["metrics"][kind].get(name, 0.0)
+
+        def disp(s):
+            return (s["metrics"]["histograms"].get("scheduler.dispatch_age_s") or {}).get("count", 0)
+
+        k0 = {g[3:]: grew("gauges", g) for g in s1["metrics"]["gauges"] if g.startswith("k0.")}
+        out[nid] = {"batches_run": s1.get("batches_run", 0) - s0.get("batches_run", 0),
+                    "dispatched": disp(s1) - disp(s0),
+                    **{k: grew("counters", f"scheduler.{k}") for k in HEALTH_KEYS},
+                    "k0": {k: v for k, v in k0.items() if v}}
+    return out
+
+
+def deployment_run(W: int, seed: int, dev=None, root: Path = None) -> dict:
+    """Phase 25's work: a broker and three daemons (``Deployment``, the
+    phase 24 batching settings, ``reply_timeout_s`` 900); through
+    ``RemoteCluster`` W wallets created in one burst, W ECDSA + W EdDSA
+    signs, a reshare of all W on both curves (t=1, epoch 1) and W + W signs
+    again. Fails unless every result succeeds with no timeout and no dead
+    letter, each stage's dispatches add up to its burst with the batches
+    it needs on every node, no scheduler falls back, sheds, quarantines or
+    declines, K0's gauges grow on every node across each sign stage (both
+    entries at both widths, every powmod mode of the path) with no plain
+    call and stay put around create and reshare, the compile section reads
+    ready with the K0 build, node0's flight recorder is valid Chrome JSON,
+    and every process exits 0 on SIGTERM within 30 s. On the CPU
+    (``dev="cpu"``, a rehearsal) the signs must reach K0's plain versions
+    and never the kernel, and no build is ledgered. → the phase record and
+    the signatures, which :func:`serving_finish` verifies on the host."""
+    import numpy as np
+
+    from mpcium_tpu_torch import wire
+    from mpcium_tpu_torch.cli.deployment import Deployment
+    from mpcium_tpu_torch.node.daemon import TRACE_DUMP
+    from mpcium_tpu_torch.store.broker_kv import BrokerKV
+    from mpcium_tpu_torch.store.keyinfo import KeyinfoStore
+    from mpcium_tpu_torch.trace import validate_chrome
+    from mpcium_tpu_torch.utils import log
+
+    log.init(level="WARNING")  # the client logs a line per request
+    root = Path(root or ROOT / "build" / f"deployment-{seed}-{os.getpid()}")
+    on_card = dev is None
+    dep = Deployment(root, dev=dev, cfg=DEPLOY_CFG)
+    rc = None
+    stages, checks, dead = {}, {}, []
+    try:
+        up = dep.start()
+        rc = dep.remote()
+        client = rc.client
+        rc.transport.set_dead_letter_handler(lambda topic, data, n: dead.append((topic, n)))
+        kv = BrokerKV(rc.transport.client)
+        h = dep.health(kv, time.time())
+        wallets = [f"chip-deploy-{seed}-{w}" for w in range(W)]
+
+        def stage(name, subscribe, fire, key, n, want_batches, sign):
+            nonlocal h
+            got, wall, t0, t_last = _burst(subscribe, fire, key, n, name)
+            t_res = time.time()
+            h1 = dep.health(kv, t_res)
+            delta = _health_delta(h, h1)
+            h = h1
+            timeouts = [k for k, ev in got.items() if getattr(ev, "is_timeout", False)]
+            stages[name] = rec = {
+                "wall_s": wall, "t_end_s": since_start(), "results": len(got), "by_node": delta,
+                "batch_sizes": sorted({d["dispatched"] / d["batches_fired_total"]
+                                       for d in delta.values() if d["batches_fired_total"]}),
+                "dead_letters": list(dead), "timeouts": timeouts}
+            bad = {nid: d for nid, d in delta.items()
+                   if d["batches_run"] != want_batches or d["fallback_total"] or d["shed_total"]
+                   or d["quarantined_total"] or d["declined_total"]
+                   or (not sign and d["k0"])}
+            if (bad or dead or timeouts or sum(d["dispatched"] for d in delta.values()) != n
+                    or sum(d["batches_fired_total"] for d in delta.values()) != want_batches):
+                raise AssertionError(f"deployment {name}: {rec}")
+            need = [f"mulmod_launches.n{w}" for w in (320, 608)] + [
+                f"powmod_launches.{m}_n{w}" for m, w in POWMOD_PATH]
+            for nid, d in delta.items():
+                k0 = d["k0"]
+                if sign and (([g for g in need if not k0.get(g)] or k0.get("plain_calls"))
+                             if on_card else (not k0.get("plain_calls") or len(k0) > 1)):
+                    raise AssertionError(f"deployment {name}: {nid}'s K0 gauges {k0}")
+            return got, t0, t_last
+
+        kg, _, _ = stage("create", client.on_wallet_creation_result,
+                         lambda: [client.create_wallet(w) for w in wallets],
+                         lambda ev: ev.wallet_id, W, 1, False)
+        bad = [w for w, ev in kg.items() if ev.result_type != wire.RESULT_SUCCESS]
+        if bad:
+            raise AssertionError(f"deployment create failed: {kg[bad[0]].error_reason}")
+        secp_pubs = [bytes.fromhex(kg[w].ecdsa_pub_key) for w in wallets]
+        ed_pubs = [bytes.fromhex(kg[w].eddsa_pub_key) for w in wallets]
+        drng = np.random.default_rng(seed + 250)
+
+        def sign_stage(name, tag):
+            digests = [r.tobytes() for r in drng.integers(0, 256, (W, 32), dtype=np.uint8)]
+            msgs = [r.tobytes() for r in drng.integers(0, 256, (W, 32), dtype=np.uint8)]
+
+            def fire():
+                for i, w in enumerate(wallets):
+                    client.sign_transaction(wire.SignTxMessage(
+                        "secp256k1", w, "eth", f"{tag}-ecdsa-{i}", digests[i]))
+                for i, w in enumerate(wallets):
+                    client.sign_transaction(wire.SignTxMessage(
+                        "ed25519", w, "sol", f"{tag}-eddsa-{i}", msgs[i]))
+
+            got, t0, t_last = stage(name, client.on_sign_result, fire, lambda ev: ev.tx_id,
+                                    2 * W, 2, True)
+            ec = [got[f"{tag}-ecdsa-{i}"] for i in range(W)]
+            ed = [got[f"{tag}-eddsa-{i}"] for i in range(W)]
+            bad = [e for e in ec + ed if e.result_type != wire.RESULT_SUCCESS]
+            if bad:
+                raise AssertionError(f"deployment {name}: {bad[0].tx_id}: {bad[0].error_reason}")
+            rec = stages[name]
+            rec["ecdsa_wall_s"] = max(t_last[f"{tag}-ecdsa-{i}"] for i in range(W)) - t0
+            rec["eddsa_wall_s"] = max(t_last[f"{tag}-eddsa-{i}"] for i in range(W)) - t0
+            checks[name] = {"secp_pubs": secp_pubs, "digests": digests,
+                            "r": [bytes.fromhex(e.r) for e in ec],
+                            "s": [bytes.fromhex(e.s) for e in ec],
+                            "ed_pubs": ed_pubs, "msgs": msgs,
+                            "sigs": [bytes.fromhex(e.signature) for e in ed]}
+
+        sign_stage("sign", "s1")
+        rs, _, _ = stage("reshare", client.on_resharing_result,
+                         lambda: [client.resharing(w, 1, kt) for kt in ("secp256k1", "ed25519")
+                                  for w in wallets],
+                         lambda ev: (ev.wallet_id, ev.key_type), 2 * W, 2, False)
+        pubs = {"secp256k1": secp_pubs, "ed25519": ed_pubs}
+        bad = [k for k, ev in rs.items() if ev.result_type != wire.RESULT_SUCCESS
+               or bytes.fromhex(ev.pub_key) != pubs[k[1]][wallets.index(k[0])]]
+        if bad:
+            raise AssertionError(f"deployment reshare: {bad[0]}: {rs[bad[0]].error_reason}")
+        epochs = sorted({KeyinfoStore(kv).get(kt, w).epoch for kt in pubs for w in wallets})
+        if epochs != [1]:
+            raise AssertionError(f"deployment reshare: keyinfo epochs {epochs}")
+        stages["reshare"]["keys_kept_epoch_1"] = True
+        sign_stage("sign_after_reshare", "s2")
+        compile_ = {nid: s["compile"] for nid, s in h.items()}
+        for nid, c in compile_.items():
+            built = bool(c["last"]) and c["last"]["engine"] == "mulmod"
+            if c["state"] != "ready" or built != on_card:
+                raise AssertionError(f"deployment: {nid}'s compile section {c}")
+        record = {
+            "phase": "deployment", "nodes": dep.nodes, "threshold": 1, "wallets": W,
+            "processes": "broker + 3 daemons (python -m mpcium_tpu_torch.cli.main)",
+            "device": "default (cuda)" if dev is None else str(dev),
+            "broker": {"encrypt": True, "journal": True, "control_plane": "broker"},
+            "config": DEPLOY_CFG, "up_s": up, "compile": compile_,
+            "scheduler": {nid: {k: s["metrics"]["counters"].get(f"scheduler.{k}", 0.0)
+                                for k in HEALTH_KEYS} for nid, s in h.items()},
+            "reduced": {"DEPLOY_W": f"{W}: phase 24's burst, so the stage walls compare"}}
+    finally:
+        if rc is not None:
+            rc.close()
+        stopped = dep.stop()
+    record["shutdown"] = {tag: {"rc": rc_, "s": s} for tag, (rc_, s) in stopped.items()}
+    if any(rc_ != 0 for rc_, _ in stopped.values()):
+        raise AssertionError(f"deployment: shutdown {record['shutdown']}: "
+                             + " | ".join(dep.log_tail(t, 800) for t in stopped))
+    doc = json.loads((root / "node0" / "db" / "node0" / TRACE_DUMP).read_text())
+    record["trace_node0"] = {"events": validate_chrome(doc),
+                             "dropped_spans": doc["otherData"]["dropped_spans"]}
+    shutil.rmtree(root, ignore_errors=True)
+    return {"record": record, "stages": stages, "checks": checks}
+
+
+_DEPLOY_POOL = None
+
+
+def _deployment_task(W: int, seed: int) -> dict:
+    """Phase 25's client in a process of its own: it starts the daemons and
+    drives them through the client, and touches no device itself."""
+    t0, t_start = time.perf_counter(), since_start()
+    res = deployment_run(W, seed)
+    res["record"].update(phase_s=time.perf_counter() - t0, t_start_s=t_start,
+                         t_end_s=since_start())
+    return res
+
+
+def start_deployment(W: int, seed: int):
+    """Start phase 25 on a spawned process, niced like phase 24's (the
+    daemons inherit it); it overlaps the phases after the kernel timings."""
+    global _DEPLOY_POOL
+    _DEPLOY_POOL = spawned_pool()
+    return _DEPLOY_POOL.submit(_deployment_task, W, seed), time.perf_counter()
+
+
+def join_deployment(future, t_submit: float, serving: dict) -> dict:
+    t0 = time.perf_counter()
+    res = future.result()
+    wait_s = time.perf_counter() - t0
+    _DEPLOY_POOL.shutdown()
+    serving_finish(res, {"overlapped": True, "join_wait_s": wait_s,
+                            "since_submit_s": time.perf_counter() - t_submit,
+                            "phase24_stage_walls_s": {
+                                k: {"wall_s": v["wall_s"], "ecdsa_wall_s": v.get("ecdsa_wall_s"),
+                                    "eddsa_wall_s": v.get("eddsa_wall_s")}
+                                for k, v in serving["stages"].items()}}, "deployment")
+    return res
+
+
 def main() -> int:
     t_script = time.perf_counter()
+    os.environ[T0_ENV] = repr(time.monotonic())
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=1024, help="sessions B")
     ap.add_argument("--eddsa-batch", type=int, default=EDDSA_B, help="EdDSA sessions")
@@ -2023,8 +2330,10 @@ def main() -> int:
     pre = load_test_preparams(2048)
     widths = kernel_vs_plain(1024, args.seed, pre, K, mm, bn)
     pm = powmod_vs_plain(1024, args.seed, pre, K, mm, bn)
-    # phase 24 overlaps the phases from here on (after the kernel timings)
+    # phases 19, 24 and 25 overlap the phases from here on (after the kernel timings)
+    life_future, t_life = start_lifecycle(LIFECYCLE_B, args.seed)
     serving_future, t_serving = start_serving(SERVING_W, args.seed)
+    deploy_future, t_deploy = start_deployment(DEPLOY_W, args.seed)
     by_width, by_mode, shares = run_slice(args.batch, args.seed, pre, K)
     emit({
         "phase": "wrapper_host", "note": "launches in the warm sign x host ms "
@@ -2048,12 +2357,13 @@ def main() -> int:
     dkg_golden()
     dkg_shares = run_dkg_engine(DKG_B, args.seed, K)
     run_reshare_engine(RESHARE_B, args.seed, dkg_shares, K)
-    life = run_wallet_lifecycle(LIFECYCLE_B, args.seed, K)
     run_eddsa_dkg(LIFECYCLE_B, args.seed, K)
     run_session_eddsa(args.seed)
     session = join_session_ecdsa(session_futures, t_submit)
     run_session_batch_sign(session, args.seed, K)
-    join_serving(serving_future, t_serving)
+    life = join_lifecycle(life_future, t_life)
+    serving = join_serving(serving_future, t_serving)
+    join_deployment(deploy_future, t_deploy, serving)
     emit({"phase": "wall", "script_s": time.perf_counter() - t_script,
           "note": "from the start of main() to here"})
 
@@ -2100,7 +2410,7 @@ if __name__ == "__main__":
     try:
         rc = main()
     finally:
-        for pool in (_POOL, _SESSION_POOL, _SERVING_POOL):
+        for pool in (_POOL, _SESSION_POOL, _LIFECYCLE_POOL, _SERVING_POOL, _DEPLOY_POOL):
             if pool is not None:
                 pool.shutdown(cancel_futures=True)
     sys.exit(rc)

@@ -1,19 +1,23 @@
 """In-process development cluster, and the fixture loader.
 
 The port's copy of the JAX package's ``cluster.py``: :class:`LocalCluster`
-assembles n nodes over the loopback fabric with real identities,
-encrypted share stores, registries, consumers and a client — the
-docker-compose-equivalent dev stack as one object for tests, examples and
-the card's smoke run. ``device`` is the cluster's card: every node, event
-consumer and batch scheduler gets it, and every batched party they build
-computes on it. ``None`` means the GPU and raises when there is none, so
-a cluster never moves its batches to the CPU on its own; tests pass
-``device="cpu"``.
+assembles n nodes over the loopback fabric or a TCP broker (with a
+hot-standby broker on request) with real identities, encrypted share
+stores, registries, consumers and a client — the docker-compose-equivalent
+dev stack as one object for tests, examples and the card's smoke run.
+``device`` is the cluster's card: every node, event consumer and batch
+scheduler gets it, and every batched party they build computes on it.
+``None`` means the GPU and raises when there is none, so a cluster never
+moves its batches to the CPU on its own; tests pass ``device="cpu"``.
+:class:`RemoteCluster` is the client's handle to a running deployment
+(broker + daemons, ``node/daemon.py``).
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-queue 1 item): the TCP transport and :class:`RemoteCluster` (item 5),
-fault plans, the hot-standby broker and ``respawn_node`` (item 6), and
-the flight recorder behind ``trace_snapshot`` (item 8).
+Where the port differs from the JAX cluster: a batched cluster sizes its
+transports' handler pools for a full batch on each curve; ``close()``
+also closes every TCP client it made and disarms the flight recorder
+(its buffers stay for ``trace_snapshot``). Fault plans and
+``respawn_node`` are not ported and raise ``NotImplementedError``
+(ROADMAP queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -35,6 +39,9 @@ from .node.node import Node
 from .registry.registry import PeerRegistry
 from .store.keyinfo import KeyinfoStore
 from .store.kvstore import EncryptedFileKV, MemoryKV
+from .trace import arm as _trace_arm
+from .trace import disarm as _trace_disarm
+from .trace import snapshot_chrome as _trace_snapshot_chrome
 from .transport.loopback import LoopbackFabric
 from .utils import log
 
@@ -124,7 +131,7 @@ class SyncOps:
 
 
 class LocalCluster(SyncOps):
-    """n identical in-process MPC nodes + a client over loopback."""
+    """n identical in-process MPC nodes + a client over loopback or TCP."""
 
     def __init__(
         self,
@@ -135,11 +142,11 @@ class LocalCluster(SyncOps):
         store_password: str = "dev-password",
         min_paillier_bits: int = 2046,
         reply_timeout_s: float = 30.0,
-        transport: str = "loopback",
+        transport: str = "loopback",  # "loopback" | "tcp"
         batch_signing: bool = False,
         batch_window_s: float = 0.05,
         fault_plans: Optional[Dict] = None,
-        broker_standby: bool = False,
+        broker_standby: bool = False,  # tcp only: hot-standby broker pair
         hello_timeout_s: Optional[float] = 20.0,
         session_timeout_s: Optional[float] = None,  # EventConsumer GC knobs
         gc_interval_s: Optional[float] = None,
@@ -155,16 +162,16 @@ class LocalCluster(SyncOps):
         # resolve first: a cluster without a card raises before it starts
         # a single thread (None means the GPU; tests pass "cpu")
         self.device = resolve(device)
-        if transport != "loopback":
+        if fault_plans:
             raise NotImplementedError(
-                f"LocalCluster(transport={transport!r}): only the loopback "
-                "fabric is ported (the TCP transport is ROADMAP queue 1, item 5)")
-        if fault_plans or broker_standby:
-            raise NotImplementedError(
-                "fault plans and the standby broker are not ported "
-                "(ROADMAP queue 1, item 6)")
+                "fault plans are not ported (ROADMAP queue 1, item 6)")
         self.root = Path(root_dir or tempfile.mkdtemp(prefix="mpcium-tpu-torch-"))
         self.node_ids = [f"node{i}" for i in range(n_nodes)]
+        # flight recorder is always on for clusters: bounded per-node ring
+        # buffers, merged on demand by trace_snapshot(); incident dumps land
+        # under the cluster root
+        _trace_arm(node_ids=self.node_ids,
+                   dump_dir=str(self.root / "trace_incidents"))
         # None overrides are skipped by init_config → config defaults apply
         cfg = init_config(path=str(self.root / "nonexistent.yaml"),
                           mpc_threshold=threshold,
@@ -179,8 +186,28 @@ class LocalCluster(SyncOps):
         workers = 16
         if batch_signing:
             workers += 2 * cfg.batch_max_batch
-        self.fabric = LoopbackFabric(workers=workers)
-        self._mk_transport = self.fabric.transport
+        self.broker = None
+        self.standby_broker = None
+        self.fabric = None
+        self._tcp: List[object] = []  # every TCP transport made, for close()
+        if transport == "tcp":
+            from .transport.tcp import BrokerServer
+
+            self.broker = BrokerServer(port=0)
+            standbys = None
+            if broker_standby:
+                self.standby_broker = BrokerServer(
+                    port=0, follow=(self.broker.host, self.broker.port)
+                )
+                assert self.standby_broker._rep_synced.wait(10), (
+                    "standby broker never synced to primary"
+                )
+                standbys = [(self.standby_broker.host,
+                             self.standby_broker.port)]
+            self._mk_transport = lambda: self._tcp_transport(standbys, workers)
+        else:
+            self.fabric = LoopbackFabric(workers=workers)
+            self._mk_transport = self.fabric.transport
         self._hello_timeout_s = hello_timeout_s
         self.control_kv = MemoryKV()  # the Consul analogue
 
@@ -267,6 +294,14 @@ class LocalCluster(SyncOps):
         registry.ready()
         return ec
 
+    def _tcp_transport(self, standbys, workers: int):
+        from .transport.tcp import tcp_transport
+
+        t = tcp_transport(self.broker.host, self.broker.port,
+                          standbys=standbys, workers=workers)
+        self._tcp.append(t)
+        return t
+
     def respawn_node(self, node_id: str) -> EventConsumer:
         raise NotImplementedError(
             "respawn_node is not ported (ROADMAP queue 1, item 6)")
@@ -286,8 +321,11 @@ class LocalCluster(SyncOps):
 
     def trace_snapshot(self, clear: bool = False,
                        meta: Optional[dict] = None) -> dict:
-        raise NotImplementedError(
-            "the flight recorder is not ported (ROADMAP queue 1, item 8)")
+        """Merge every node's flight-recorder ring buffer (plus the shared
+        engine/client tracks) into one Chrome-trace-event JSON document —
+        pid = node, tid = session/lane — loadable in Perfetto / chrome://
+        tracing. Buffers survive :meth:`close`."""
+        return _trace_snapshot_chrome(clear=clear, meta=meta)
 
     def prometheus_text(self) -> str:
         """Prometheus text exposition for the whole cluster: each node's
@@ -307,7 +345,14 @@ class LocalCluster(SyncOps):
             sc.close()
         for node in self.nodes.values():
             node.registry.resign()
-        self.fabric.close()
+        if self.fabric is not None:
+            self.fabric.close()
+        for t in self._tcp:
+            t.client.close()
+        for b in (self.broker, self.standby_broker):
+            if b is not None:
+                b.close()
+        _trace_disarm()
         # the nodes' daemon workers end once their sessions and wheels are
         # closed; wait for them (bounded) so close() is a teardown barrier
         deadline = time.monotonic() + join_timeout_s
@@ -318,14 +363,44 @@ class LocalCluster(SyncOps):
 
 
 class RemoteCluster(SyncOps):
-    """Client-side handle to a running networked deployment (broker +
-    daemons); it needs the TCP transport."""
+    """Client-side handle to an ALREADY RUNNING networked deployment
+    (broker + daemons — the docker-compose topology): the analogue of the
+    reference examples connecting to a live NATS+Consul stack
+    (INSTALLATION.md "Start Mpcium Nodes"; examples/generate/main.go).
 
-    def __init__(self, config_path: str, initiator_key_path: Optional[str] = None,
-                 passphrase: Optional[str] = None):
-        raise NotImplementedError(
-            "RemoteCluster needs the TCP transport, which is not ported "
-            "(ROADMAP queue 1, item 5)")
+    Reads broker endpoint/auth/encryption from the same config file the
+    daemons use and loads the initiator's PRIVATE key (default:
+    ``event_initiator.key`` next to the config, the client.go:64-146
+    layout). It computes nothing, so it takes no device."""
+
+    def __init__(
+        self,
+        config_path: str,
+        initiator_key_path: Optional[str] = None,
+        passphrase: Optional[str] = None,
+    ):
+        from .config import init_config
+        from .transport.tcp import parse_addrs, tcp_transport
+
+        cfg = init_config(path=str(config_path))
+        key_path = Path(
+            initiator_key_path
+            or Path(config_path).resolve().parent / "event_initiator.key"
+        )
+        # load the key BEFORE connecting: a missing/locked key must not
+        # leak a live authenticated broker connection + reader thread
+        initiator = InitiatorKey.load(key_path, passphrase)
+        self.transport = tcp_transport(
+            cfg.broker_host,
+            cfg.broker_port,
+            auth_token=cfg.broker_token or None,
+            encrypt=cfg.broker_encrypt,
+            standbys=parse_addrs(cfg.broker_standbys) or None,
+        )
+        self.client = MPCClient(self.transport, initiator)
+
+    def close(self) -> None:
+        self.transport.client.close()
 
 
 def load_test_preparams(bits: int = 2048) -> Dict[str, PreParams]:

@@ -19,8 +19,9 @@ spawns sessions, publishes results:
 The port's copy of the JAX package's ``consumers/event_consumer.py``.
 ``device`` reaches the batch scheduler, which builds every batched party
 on it (``None``: the GPU, raising when there is none). ``health()``
-reports what the JAX version reports but the compile-ledger, claims and
-flight-recorder gauges (ROADMAP queue 1, item 8).
+reports what the JAX version reports, with the port's compile ledger
+(K0's build and its launch counters) in place of the XLA one; the claims
+ledger of measurement debt is not ported (ROADMAP queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -133,17 +134,27 @@ class EventConsumer:
         with self._lock:
             live_sessions = sum(len(ss) for ss in self._sessions.values())
             claims = len(self._claim_ts)
-        # refresh the settled-map gauge the snapshot should carry (cheap;
-        # health is called at human cadence)
+        # refresh the observability gauges the snapshot should carry:
+        # flight-recorder ring drops, the settled-map size, and the
+        # compile ledger with K0's counters (all cheap; health is called
+        # at human cadence)
+        from ..perf import compile_watch
+        from ..trace import recorder
+
+        self.metrics.gauge("trace.dropped_spans").set(
+            float(recorder.recorder_for(self.node.node_id).dropped)
+        )
         if self.scheduler is not None:
             self.metrics.gauge("scheduler.settled_size").set(
                 float(self.scheduler.settled_size())
             )
+        compile_watch.export_gauges(self.metrics)
         out = {
             "node": self.node.node_id,
             "live_sessions": live_sessions,
             "dedup_claims": claims,
             "batch_signing": self.scheduler is not None,
+            "compile": compile_watch.health_summary(),
             "metrics": self.metrics.snapshot(),
         }
         if self.scheduler is not None:

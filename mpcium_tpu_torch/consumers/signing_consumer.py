@@ -10,7 +10,13 @@ answer OK/ERR on terminal outcomes and WIP when a redelivered request is
 already claimed by a live session or batch (batched full-size GG18 runs
 far outlive the reply window; an unanswered redelivery would dead-letter
 work still in flight). Results always travel the idempotent result
-queues, never the inbox."""
+queues, never the inbox.
+
+The port's copy of the JAX package's ``consumers/signing_consumer.py``.
+``close()`` also releases every delivery still waiting for its reply:
+each naks (a live broker redelivers it to another node), so a node whose
+reply window is a full batch long (``reply_timeout_s``) still stops at
+once."""
 from __future__ import annotations
 
 import threading
@@ -28,6 +34,9 @@ class SigningConsumer:
         self.transport = transport
         self.reply_timeout_s = reply_timeout_s
         self._sub = None
+        self._lock = threading.Lock()
+        self._waiting: set = set()  # reply events of deliveries in flight
+        self._closed = False
 
     def run(self) -> None:
         self._sub = self.transport.queues.dequeue(
@@ -37,6 +46,11 @@ class SigningConsumer:
     def close(self) -> None:
         if self._sub:
             self._sub.unsubscribe()
+        with self._lock:
+            self._closed = True
+            waiting = list(self._waiting)
+        for evt in waiting:
+            evt.set()
 
     def _handle(self, data: bytes) -> None:
         """One delivery: publish on mpc:sign with a fresh inbox, wait one
@@ -50,17 +64,27 @@ class SigningConsumer:
         same as the reference's initiator-side budget."""
         reply_topic = f"_inbox.{uuid.uuid4().hex}"
         got_reply = threading.Event()
+        replied = []
         sub = self.transport.pubsub.subscribe(
-            reply_topic, lambda _d: got_reply.set()
+            reply_topic, lambda _d: (replied.append(True), got_reply.set())
         )
+        with self._lock:
+            if self._closed:
+                sub.unsubscribe()
+                raise TimeoutError("signing consumer closed")  # nak
+            self._waiting.add(got_reply)
         try:
             self.transport.pubsub.publish_with_reply(
                 wire.TOPIC_SIGN, reply_topic, data
             )
-            if not got_reply.wait(self.reply_timeout_s):
-                log.warn("signing request timed out waiting for reply")
+            got_reply.wait(self.reply_timeout_s)
+            if not replied:
+                log.warn("signing request timed out waiting for reply",
+                         closed=self._closed)
                 raise TimeoutError("no signing reply")  # nak ⇒ redelivery
         finally:
+            with self._lock:
+                self._waiting.discard(got_reply)
             sub.unsubscribe()
 
 

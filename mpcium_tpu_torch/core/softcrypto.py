@@ -1,22 +1,25 @@
 """Pure-Python stand-ins for the `cryptography` package (the port's copy
-of the JAX package's ``core/softcrypto.py``, as far as ``identity`` and
-``store/kvstore`` call it).
+of the JAX package's ``core/softcrypto.py``, as far as ``identity``,
+``store/kvstore`` and the broker channel ``transport/secure`` call it).
 
-The control-plane crypto (envelope authentication, share-store sealing)
-rides OpenSSL through `cryptography` where that wheel is installed; where
-it is not, this module implements the API subset the port uses, from the
-public specs:
+The control-plane crypto (envelope authentication, share-store sealing,
+the broker channel) rides OpenSSL through `cryptography` where that wheel
+is installed; where it is not, this module implements the API subset the
+port uses, from the public specs:
 
 - Ed25519 sign/verify (RFC 8032), over :mod:`.hostmath`;
 - ChaCha20-Poly1305 AEAD (RFC 8439);
+- X25519 (RFC 7748);
+- HKDF-SHA256 (RFC 5869);
 - the `serialization` surface identity.py touches (Raw encodings).
 
 Class and exception names mirror `cryptography`, so call sites do
 ``try: from cryptography... except ImportError: from ..core.softcrypto
 import ...`` and run unchanged. Both give the same bytes: Ed25519 is
-deterministic and the AEAD is a fixed construction. Throughput is
-pure Python (MB/s, not GB/s): fine for envelopes and key files, and a
-floor under serving that the cluster's timings report per stage.
+deterministic, the AEAD and HKDF are fixed constructions, and X25519 is a
+function of its two inputs. Throughput is pure Python (MB/s, not GB/s):
+fine for envelopes, key files and broker frames, and a floor under
+serving that the cluster's timings report per stage.
 """
 from __future__ import annotations
 
@@ -226,3 +229,129 @@ class ChaCha20Poly1305:
         if not _hmac.compare_digest(self._tag(nonce, ct, aad), tag):
             raise InvalidTag("AEAD authentication failed")
         return _chacha20_xor(self._key, 1, nonce, ct)
+
+
+# ---------------------------------------------------------------------------
+# X25519 (RFC 7748)
+# ---------------------------------------------------------------------------
+
+_X25519_P = 2**255 - 19
+_X25519_A24 = 121665
+
+
+def _x25519_scalarmult(k: bytes, u: bytes) -> bytes:
+    # decodeScalar25519 + decodeUCoordinate (RFC 7748 §5)
+    ki = int.from_bytes(k, "little")
+    ki &= ~(7) & ((1 << 256) - 1)
+    ki &= (1 << 254) - 1
+    ki |= 1 << 254
+    x1 = int.from_bytes(u, "little") & ((1 << 255) - 1)
+    x2, z2, x3, z3 = 1, 0, x1, 1
+    swap = 0
+    p = _X25519_P
+    for t in range(254, -1, -1):
+        k_t = (ki >> t) & 1
+        if swap ^ k_t:
+            x2, x3 = x3, x2
+            z2, z3 = z3, z2
+        swap = k_t
+        A = (x2 + z2) % p
+        AA = A * A % p
+        B = (x2 - z2) % p
+        BB = B * B % p
+        E = (AA - BB) % p
+        C = (x3 + z3) % p
+        D = (x3 - z3) % p
+        DA = D * A % p
+        CB = C * B % p
+        x3 = (DA + CB) % p
+        x3 = x3 * x3 % p
+        z3 = (DA - CB) % p
+        z3 = x1 * (z3 * z3 % p) % p
+        x2 = AA * BB % p
+        z2 = E * (AA + _X25519_A24 * E) % p
+    if swap:
+        x2, x3 = x3, x2
+        z2, z3 = z3, z2
+    return (x2 * pow(z2, p - 2, p) % p).to_bytes(32, "little")
+
+
+_X25519_BASE = (9).to_bytes(32, "little")
+
+
+class X25519PublicKey:
+    def __init__(self, raw: bytes):
+        if len(raw) != 32:
+            raise ValueError("X25519 public key must be 32 bytes")
+        self._raw = bytes(raw)
+
+    @classmethod
+    def from_public_bytes(cls, data: bytes) -> "X25519PublicKey":
+        return cls(data)
+
+    def public_bytes_raw(self) -> bytes:
+        return self._raw
+
+    def public_bytes(self, encoding=None, format=None) -> bytes:  # noqa: A002
+        return self._raw
+
+
+class X25519PrivateKey:
+    def __init__(self, raw: bytes):
+        if len(raw) != 32:
+            raise ValueError("X25519 private key must be 32 bytes")
+        self._raw = bytes(raw)
+
+    @classmethod
+    def generate(cls) -> "X25519PrivateKey":
+        return cls(secrets.token_bytes(32))
+
+    @classmethod
+    def from_private_bytes(cls, data: bytes) -> "X25519PrivateKey":
+        return cls(data)
+
+    def public_key(self) -> X25519PublicKey:
+        return X25519PublicKey(_x25519_scalarmult(self._raw, _X25519_BASE))
+
+    def exchange(self, peer_public_key: X25519PublicKey) -> bytes:
+        ss = _x25519_scalarmult(self._raw, peer_public_key.public_bytes_raw())
+        if ss == b"\x00" * 32:
+            # RFC 7748 §6.1: all-zero output means a low-order point
+            raise ValueError("X25519 exchange produced the all-zero value")
+        return ss
+
+
+# ---------------------------------------------------------------------------
+# HKDF-SHA256 (RFC 5869) — only the (salt, info, length).derive(ikm) shape
+# the broker channel uses
+# ---------------------------------------------------------------------------
+
+
+class SHA256:
+    """Algorithm marker matching cryptography's hashes.SHA256."""
+
+    digest_size = 32
+    name = "sha256"
+
+
+class HKDF:
+    def __init__(self, algorithm=None, length: int = 32,
+                 salt: Optional[bytes] = None, info: Optional[bytes] = None):
+        if length > 255 * 32:
+            raise ValueError("HKDF-SHA256 output too long")
+        self._length = length
+        self._salt = salt or b"\x00" * 32
+        self._info = info or b""
+
+    def derive(self, key_material: bytes) -> bytes:
+        prk = _hmac.new(self._salt, key_material, hashlib.sha256).digest()
+        okm = b""
+        t = b""
+        i = 1
+        while len(okm) < self._length:
+            t = _hmac.new(
+                prk, t + self._info + bytes([i]), hashlib.sha256
+            ).digest()
+            okm += t
+            i += 1
+        return okm[: self._length]

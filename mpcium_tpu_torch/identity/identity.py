@@ -253,6 +253,34 @@ class InitiatorKey:
     def generate(cls) -> "InitiatorKey":
         return cls(_sk=Ed25519PrivateKey.generate())
 
+    @classmethod
+    def load(cls, path, passphrase: Optional[str] = None) -> "InitiatorKey":
+        p = Path(path)
+        enc = Path(str(p) + ENC_SUFFIX)
+        if enc.exists():
+            if passphrase is None:
+                raise IdentityError("initiator key is encrypted; passphrase required")
+            raw = bytes.fromhex(
+                decrypt_private_bytes(enc.read_bytes(), passphrase).decode()
+            )
+        else:
+            raw = bytes.fromhex(p.read_text().strip())
+        return cls(_sk=Ed25519PrivateKey.from_private_bytes(raw))
+
+    def save(self, path, passphrase: Optional[str] = None) -> None:
+        raw = self._sk.private_bytes(
+            serialization.Encoding.Raw,
+            serialization.PrivateFormat.Raw,
+            serialization.NoEncryption(),
+        )
+        if passphrase is not None:
+            _write_private_file(
+                str(path) + ENC_SUFFIX,
+                encrypt_private_bytes(raw.hex().encode(), passphrase),
+            )
+        else:
+            _write_private_file(path, raw.hex().encode())
+
     @property
     def public_bytes(self) -> bytes:
         return self._sk.public_key().public_bytes(

@@ -32,7 +32,9 @@ work.
 
 The library is compiled with ``nvcc`` into ``build/mpcium_tpu_torch/``
 at the first CUDA call and bound with ctypes (plain C interface, no
-PyTorch headers).
+PyTorch headers). Each process's build is one entry of the compile ledger
+(``perf/compile_watch``): ``cache`` ``hit`` when the library of that
+source digest already existed.
 
 Counters: ``launches`` counts launches of the single-product kernel,
 ``launches_by_width`` the same per limb width n;
@@ -55,6 +57,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..perf import compile_watch
 
 LIMB_BITS = 7
 MAX_LIMBS = 608  # 4256 bits: the 4096-bit Paillier N² width
@@ -156,6 +160,10 @@ def build() -> ctypes.CDLL:
             SRC.read_bytes() + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
         so = BUILD_DIR / f"libmulmod_{digest}.so"
+        # the compile ledger: one entry per process, "hit" when a library
+        # of this digest was already built (by another process or run)
+        token = compile_watch.begin("mulmod", digest, arch="sm_90a")
+        cache = "hit" if so.exists() else "miss"
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
@@ -175,6 +183,7 @@ def build() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
+        compile_watch.finish(token, cache)
         return lib
 
 

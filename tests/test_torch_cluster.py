@@ -15,8 +15,11 @@ and its checks are ``tests/torch_serving.py``'s.
   signature verifies on the host; no scheduler falls back, sheds or
   declines a request.
 - ``LocalCluster()`` without ``device=`` raises where there is no GPU,
-  before it starts a thread; the parts not ported raise
-  ``NotImplementedError``.
+  before it starts a thread; the parts not ported (fault plans,
+  ``respawn_node``) raise ``NotImplementedError``, and ``trace_snapshot``
+  merges the nodes' flight recorders (the TCP transport, the standby
+  broker and ``RemoteCluster`` are ``test_torch_cluster_tcp.py``'s and
+  ``test_torch_daemon.py``'s).
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ import torch
 import torch_serving as srv
 from torch_golden_writer import pipe_host_down  # noqa: F401  (stops pipe-host at module end)
 
-from mpcium_tpu_torch.cluster import LocalCluster, RemoteCluster
+from mpcium_tpu_torch.cluster import LocalCluster
+from mpcium_tpu_torch.trace import validate_chrome
 
 torch.set_num_threads(1)  # tiny float64 matmuls: threads only contend
 
@@ -65,18 +69,20 @@ def test_cluster_without_a_device_raises_before_starting_threads():
     assert set(threading.enumerate()) <= before
 
 
-@pytest.mark.parametrize("kw", [{"transport": "tcp"}, {"fault_plans": {"*": object()}},
-                                {"broker_standby": True}])
+@pytest.mark.parametrize("kw", [{"fault_plans": {"*": object()}},
+                                {"fault_plans": {"node0": object()}, "transport": "tcp"},
+                                {"fault_plans": {"client": object()}, "broker_standby": True}])
 def test_unported_cluster_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+    before = set(threading.enumerate())
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
         LocalCluster(n_nodes=2, threshold=1, device="cpu", **kw)
+    assert set(threading.enumerate()) <= before
 
 
 def test_unported_cluster_entry_points_raise(cluster):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        RemoteCluster("config.yaml")
     with pytest.raises(NotImplementedError, match="item 6"):
         cluster.respawn_node("node0")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cluster.trace_snapshot()
+    doc = cluster.trace_snapshot()
+    assert validate_chrome(doc) > 0
+    assert {"node0", "node1"} <= set(doc["otherData"]["dropped_spans"])
     assert 'scheduler_fallback_total{node="node0"} 0.0' in cluster.prometheus_text()

@@ -46,6 +46,14 @@ def test_the_guard_sees_every_port_module_and_every_import_form(tmp_path):
                "cluster", "analysis/taxonomy"]
     assert {f"mpcium_tpu_torch/{m}.py" for m in serving} <= names
     assert all((ROOT / "mpcium_tpu" / f"{m}.py").is_file() for m in serving)
+    # the networked deployment: the JAX package's modules of the same paths
+    deployment = ["transport/secure", "transport/tcp", "store/broker_kv", "trace/__init__",
+                  "trace/schema", "trace/export", "trace/recorder", "perf/compile_watch",
+                  "node/daemon", "cli/__init__", "cli/main", "cli/ops", "cli/commands"]
+    assert {f"mpcium_tpu_torch/{m}.py" for m in deployment} <= names
+    assert all((ROOT / "mpcium_tpu" / f"{m}.py").is_file() for m in deployment)
+    # and the port's own launcher of a local deployment (no JAX counterpart)
+    assert "mpcium_tpu_torch/cli/deployment.py" in names
     sample = tmp_path / "sample.py"
     sample.write_text("import jax.numpy as jnp\n"
                       "def f():\n"
