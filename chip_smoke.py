@@ -222,6 +222,37 @@ over an encrypted TCP broker, driven through ``RemoteCluster``):
     verifies every signature and prints the stage lines and the phase
     line with phase 24's walls beside it.
 
+Soak and chaos (fault plans, the faulty transport and the drills against
+the port's clusters; both phases run in phase 19's child process after
+its lifecycle returns, and the main process prints their lines at the
+end):
+
+26. chaos — ``faults.chaos.run_all`` on the card (``device="cuda"``,
+    seed CHAOS_SEED, scale 1.0): node-crash, drop-jitter,
+    broker-failover, partition, kill-resume (its ``warm_for_drill``
+    signs the EdDSA bucket of 2 on the card first) and cheater (its
+    OT-MtA leg on the card). One line per drill: outcome, ok,
+    ``duration_s``, the fault counters, ``resume_latency_s`` and
+    ``warm`` for kill-resume, ``culprit`` and ``survivors`` for the
+    cheater, and the event count of the drill's trace document. The
+    phase fails unless every drill reports its expected outcome and the
+    cheater's leg computed on ``cuda``.
+27. soak — ``soak.run_soak`` on the card with the JAX package's recorded
+    soak configuration (``SOAK_CFG``: 3 nodes, t=1, 12 dealer ed25519
+    wallets, bursts of 16 signs every 0.3 s, a quarter interactive,
+    ``batch-chaos`` at scale 1.0, a queue depth of 10 below the burst so
+    backpressure sheds and retries run), cut in depth to one burst
+    (16 signs, not 48: ``SOAK_REDUCED``, in the line). The line is the
+    report without its trace (outcomes, latency percentiles, throughput,
+    scheduler counters) with the batch sizes from the trace's dispatch
+    spans and how its party sessions overlapped (the most live at once,
+    when the first and the last ended). It fails unless the books close
+    (``accounting_ok``, ``pending`` 0), every success event's signature
+    verifies on the host under its wallet's key (and every succeeded
+    request has one), ``scheduler.fallback_total`` and
+    ``scheduler.declined_total`` read 0 on every node, and at least one
+    batch fired on the card.
+
 Every host verification runs the port's python-int verifiers over all
 signatures, spread over a pool of worker processes (one per host core).
 The kernels line's launch counts are phase 19's first party sign. Every
@@ -1400,6 +1431,7 @@ def check_lifecycle(rec: dict, k0: dict) -> None:
 
 
 _LIFECYCLE_POOL = None
+CHAOS_SEED = 7  # the JAX package's `make chaos` seed
 
 
 def _lifecycle_task(B: int, seed: int):
@@ -1422,10 +1454,13 @@ def _lifecycle_task(B: int, seed: int):
 
 def start_lifecycle(B: int, seed: int):
     """Start phase 19 on a spawned process, niced like phase 24's; it
-    overlaps the phases after the kernel timings."""
+    overlaps the phases after the kernel timings. Phases 26 and 27 are
+    the worker's second task: they run after the lifecycle returns."""
     global _LIFECYCLE_POOL
     _LIFECYCLE_POOL = spawned_pool()
-    return _LIFECYCLE_POOL.submit(_lifecycle_task, B, seed), time.perf_counter()
+    t_submit = time.perf_counter()
+    return (_LIFECYCLE_POOL.submit(_lifecycle_task, B, seed),
+            _LIFECYCLE_POOL.submit(_chaos_soak_task, CHAOS_SEED), t_submit)
 
 
 def join_lifecycle(future, t_submit: float) -> dict:
@@ -1434,11 +1469,202 @@ def join_lifecycle(future, t_submit: float) -> dict:
     t0 = time.perf_counter()
     rec, k0 = future.result()
     wait_s = time.perf_counter() - t0
-    _LIFECYCLE_POOL.shutdown()
     emit({**rec, "overlapped": True, "join_wait_s": wait_s,
           "since_submit_s": time.perf_counter() - t_submit})
     check_lifecycle(rec, k0)
     return k0
+
+
+# ---------------------------------------------------------------------------
+# phases 26 and 27: chaos drills and the SLO load soak on the card
+# ---------------------------------------------------------------------------
+
+CHAOS_EXPECTED = {"node-crash": "recovered", "drop-jitter": "success",
+                  "broker-failover": "success",
+                  "partition": "loud-failure-then-recovery",
+                  "kill-resume": "resumed", "cheater": "caught-and-quarantined"}
+# the JAX package's recorded soak configuration (SOAK_r01.json "config")
+# cut in depth only (SOAK_REDUCED): one burst of 16 signs, not three.
+# wait_timeout_s is the harness's wait for the last result (900 there):
+# a run still pending after it fails the books inside the script's limit
+SOAK_REDUCED = {"n_sign": [48, 16], "why": "at 48 signs the soak took 565 s alone on an "
+                "NVIDIA H100 80GB HBM3 at 700 W (every party sign shares one GIL with "
+                "every batch in flight) and its followers' 120 s manifest timeouts fell "
+                "back 4 requests to the per-session path; one burst fits the lane after "
+                "phase 19"}
+SOAK_CFG = {"n_nodes": 3, "threshold": 1, "n_wallets": 12, "n_sign": 16,
+            "n_keygen": 0, "n_reshare": 0, "burst_size": 16, "burst_gap_s": 0.3,
+            "seed": 1337, "interactive_fraction": 0.25,
+            "interactive_deadline_ms": 120_000, "bulk_deadline_ms": 600_000,
+            "max_retries": 3, "retry_backoff_s": 0.5, "chaos": "batch-chaos",
+            "chaos_seed": 7, "chaos_scale": 1.0, "batch_window_s": 0.25,
+            "batch_max_batch": 1024, "batch_max_queue_depth": 10,
+            "manifest_timeout_s": 120.0, "warmup_signs": 0, "wait_timeout_s": 420.0}
+
+
+def run_chaos(seed: int, dev: str = "cuda") -> dict:
+    """Phase 26: every drill of the catalog on ``dev`` → the phase record
+    with one row per drill (the trace document by its event count)."""
+    from mpcium_tpu_torch.faults.chaos import run_all
+
+    t0 = since_start()
+    rows = []
+    for r in run_all(seed=seed, scale=1.0, device=dev):
+        row = {"drill": r.name, "expected": r.expected, "outcome": r.outcome, "ok": r.ok,
+               "duration_s": r.duration_s, "faults": r.faults, "error": r.error,
+               "trace_events": len(r.trace.get("traceEvents", []))}
+        if r.name == "kill-resume":
+            row.update(resume_latency_s=r.resume_latency_s, warm=r.warm)
+        if r.name == "cheater":
+            row.update(culprit=r.culprit, survivors=r.survivors,
+                       ot_leg_device=[n.split(": ", 1)[1] for n in r.notes
+                                      if n.startswith("OT leg device: ")])
+        if not r.ok:
+            row["notes"] = r.notes
+        rows.append(row)
+    return {"phase": "chaos", "seed": seed, "scale": 1.0, "device": dev, "drills": rows,
+            "t_start_s": t0, "t_end_s": since_start()}
+
+
+def check_chaos(rec: dict) -> None:
+    got = {r["drill"]: r["outcome"] for r in rec["drills"]}
+    bad = {k: got.get(k) for k, v in CHAOS_EXPECTED.items() if got.get(k) != v}
+    bad.update({r["drill"]: r["outcome"] for r in rec["drills"] if not r["ok"]})
+    if bad:
+        raise AssertionError(f"chaos: drills missed their expected outcome: {bad}")
+    cheater = next(r for r in rec["drills"] if r["drill"] == "cheater")
+    if cheater["ot_leg_device"] != [rec["device"]]:
+        raise AssertionError(f"chaos: the cheater's OT leg ran on {cheater['ot_leg_device']}")
+
+
+def _session_overlap(trace: dict) -> dict:
+    """How the party sessions of a run overlapped, from its trace (the
+    sessions closed when the report was taken): their count, the most
+    live at once, and when (s after the first started) the first and the
+    last ended."""
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in trace["traceEvents"]
+             if e.get("name") == "session" and e.get("ph") == "X"]
+    if not spans:
+        return {"party_sessions": 0}
+    t0 = min(a for a, _b in spans)
+    return {"party_sessions": len(spans),
+            "live_max": max(sum(a <= t < b for a, b in spans) for t, _b in spans),
+            "first_end_s": (min(b for _a, b in spans) - t0) / 1e6,
+            "last_end_s": (max(b for _a, b in spans) - t0) / 1e6}
+
+
+def run_soak_phase(dev: str = "cuda") -> dict:
+    """Phase 27: the recorded soak configuration on ``dev``; every
+    succeeded signature is kept and verified on the host under its
+    wallet's key → the phase record (the report without its trace, which
+    gives the batch sizes and the sessions' overlap)."""
+    import tempfile
+
+    from mpcium_tpu_torch import wire
+    from mpcium_tpu_torch.core import hostmath as hm
+    from mpcium_tpu_torch.soak import SoakConfig, SoakRun
+
+    class _KeptSoak(SoakRun):
+        """The soak, keeping every success event's signature (late and
+        duplicate ones too) and each node's scheduler device."""
+
+        def __init__(self, cfg, device):
+            self.sigs = []
+            super().__init__(cfg, device=device)
+            node0 = self.cluster.nodes["node0"]
+            self.pubs = {w: bytes.fromhex(node0.keyinfo.get("ed25519", w).public_key)
+                         for w in self.wallets}
+            self.devices = sorted({str(ec.scheduler.device) for ec in self.cluster.consumers})
+
+        def _on_sign(self, ev):
+            if ev.result_type == wire.RESULT_SUCCESS:
+                with self._lock:
+                    self.sigs.append((ev.tx_id.split("~r")[0], ev.wallet_id, ev.signature))
+            super()._on_sign(ev)
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-soak-")
+    t0 = since_start()
+    try:
+        run = _KeptSoak(SoakConfig(**SOAK_CFG, root_dir=root), dev)
+        report = run.run()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    trace = report.pop("trace")
+    report.pop("prometheus")
+    sizes = sorted(int(e.get("args", {}).get("n", 0)) for e in trace["traceEvents"]
+                   if e.get("name") == "dispatch" and e.get("ph") != "M")
+    with run._lock:
+        txs = {b: (r.wallet_id, r.tx) for b, r in run._reqs.items()}
+        done = {b for b, r in run._reqs.items() if r.status == "succeeded"}
+    # every success event, first or late, under the key of the wallet its
+    # request named, over that request's bytes
+    verified = sum(w == txs[b][0] and hm.ed25519_verify(run.pubs[w], txs[b][1],
+                                                        bytes.fromhex(sig))
+                   for b, w, sig in run.sigs)
+    per_node = report["scheduler"].pop("per_node")
+    counters = {k: {nid: snap["counters"].get(f"scheduler.{k}", 0.0)
+                    for nid, snap in per_node.items()}
+                for k in ("fallback_total", "declined_total", "batches_fired_total",
+                          "shed_total", "submitted_total")}
+    return {"phase": "soak", "device": dev, "scheduler_devices": run.devices,
+            "config": report.pop("config"), "reduced": SOAK_REDUCED,
+            "users": "a custody backend's bursty, "
+            "sign-dominant withdrawals on a lossy, jittery network with a bounded queue",
+            **report, "per_node": counters, "batch_sizes": sizes,
+            "success_events": len(run.sigs), "success_events_verified": verified,
+            "succeeded_with_signature": len(done & {b for b, _w, _s in run.sigs}),
+            "sessions": _session_overlap(trace),
+            "trace_events": len(trace["traceEvents"]), "t_start_s": t0,
+            "t_end_s": since_start()}
+
+
+def check_soak(rec: dict) -> None:
+    out = rec["outcomes"]
+    if not rec["accounting_ok"] or out["pending"]:
+        raise AssertionError(f"soak: the books did not close: {out}")
+    if (rec["success_events_verified"] != rec["success_events"]
+            or rec["succeeded_with_signature"] != out["succeeded"]):
+        raise AssertionError(f"soak: {rec['success_events_verified']} of "
+                             f"{rec['success_events']} success events verify on the host, "
+                             f"{rec['succeeded_with_signature']} of {out['succeeded']} "
+                             f"succeeded requests have one")
+    for k in ("fallback_total", "declined_total"):
+        if any(rec["per_node"][k].values()):
+            raise AssertionError(f"soak: scheduler.{k} {rec['per_node'][k]}")
+    if rec["scheduler"]["batches_fired"] < 1 or rec["scheduler_devices"] != [rec["device"]]:
+        raise AssertionError(f"soak: batches {rec['scheduler']['batches_fired']} on "
+                             f"{rec['scheduler_devices']}")
+
+
+def _chaos_soak_task(seed: int, dev: str = "cuda") -> dict:
+    """Phases 26 and 27 in phase 19's child, after its lifecycle: cluster
+    logs at WARNING (the drills' faults log by design)."""
+    from mpcium_tpu_torch.utils import log
+
+    log.init(level="WARNING")
+    return {"chaos": run_chaos(seed, dev), "soak": run_soak_phase(dev)}
+
+
+def chaos_soak_finish(res: dict, extra: dict) -> None:
+    """Print phases 26 and 27 (one line per drill, then each phase's
+    line with ``extra``) and hold them to their checks."""
+    chaos = res["chaos"]
+    for row in chaos["drills"]:
+        emit({"phase": "chaos_drill", **row})
+    emit({**chaos, "drills": [r["drill"] for r in chaos["drills"]], **extra})
+    emit({**res["soak"], **extra})
+    check_chaos(chaos)
+    check_soak(res["soak"])
+
+
+def join_chaos_soak(future, t_submit: float) -> None:
+    """Wait for phases 26 and 27 (phase 19's worker), then finish them."""
+    t0 = time.perf_counter()
+    res = future.result()
+    wait_s = time.perf_counter() - t0
+    _LIFECYCLE_POOL.shutdown()
+    chaos_soak_finish(res, {"overlapped": True, "join_wait_s": wait_s,
+                            "since_submit_s": time.perf_counter() - t_submit})
 
 
 def run_eddsa_dkg(B: int, seed: int, K, dev: str = "cuda") -> None:
@@ -2331,7 +2557,7 @@ def main() -> int:
     widths = kernel_vs_plain(1024, args.seed, pre, K, mm, bn)
     pm = powmod_vs_plain(1024, args.seed, pre, K, mm, bn)
     # phases 19, 24 and 25 overlap the phases from here on (after the kernel timings)
-    life_future, t_life = start_lifecycle(LIFECYCLE_B, args.seed)
+    life_future, chaos_future, t_life = start_lifecycle(LIFECYCLE_B, args.seed)
     serving_future, t_serving = start_serving(SERVING_W, args.seed)
     deploy_future, t_deploy = start_deployment(DEPLOY_W, args.seed)
     by_width, by_mode, shares = run_slice(args.batch, args.seed, pre, K)
@@ -2364,6 +2590,7 @@ def main() -> int:
     life = join_lifecycle(life_future, t_life)
     serving = join_serving(serving_future, t_serving)
     join_deployment(deploy_future, t_deploy, serving)
+    join_chaos_soak(chaos_future, t_life)
     emit({"phase": "wall", "script_s": time.perf_counter() - t_script,
           "note": "from the start of main() to here"})
 

@@ -15,9 +15,8 @@ moves its batches to the CPU on its own; tests pass ``device="cpu"``.
 Where the port differs from the JAX cluster: a batched cluster sizes its
 transports' handler pools for a full batch on each curve; ``close()``
 also closes every TCP client it made and disarms the flight recorder
-(its buffers stay for ``trace_snapshot``). Fault plans and
-``respawn_node`` are not ported and raise ``NotImplementedError``
-(ROADMAP queue 1, item 6).
+(its buffers stay for ``trace_snapshot``), and the faulty transports,
+retired ones included.
 """
 from __future__ import annotations
 
@@ -145,11 +144,11 @@ class LocalCluster(SyncOps):
         transport: str = "loopback",  # "loopback" | "tcp"
         batch_signing: bool = False,
         batch_window_s: float = 0.05,
-        fault_plans: Optional[Dict] = None,
+        fault_plans: Optional[Dict] = None,  # node_id|"*"|"client" → FaultPlan
         broker_standby: bool = False,  # tcp only: hot-standby broker pair
         hello_timeout_s: Optional[float] = 20.0,
         session_timeout_s: Optional[float] = None,  # EventConsumer GC knobs
-        gc_interval_s: Optional[float] = None,
+        gc_interval_s: Optional[float] = None,  # (chaos drills shrink both)
         session_wal: bool = False,  # encrypted per-round WAL + crash resume
         batch_max_batch: Optional[int] = None,  # SLO batching knobs (None =
         batch_deadline_ms: Optional[int] = None,  # config defaults; see
@@ -162,9 +161,6 @@ class LocalCluster(SyncOps):
         # resolve first: a cluster without a card raises before it starts
         # a single thread (None means the GPU; tests pass "cpu")
         self.device = resolve(device)
-        if fault_plans:
-            raise NotImplementedError(
-                "fault plans are not ported (ROADMAP queue 1, item 6)")
         self.root = Path(root_dir or tempfile.mkdtemp(prefix="mpcium-tpu-torch-"))
         self.node_ids = [f"node{i}" for i in range(n_nodes)]
         # flight recorder is always on for clusters: bounded per-node ring
@@ -208,6 +204,12 @@ class LocalCluster(SyncOps):
         else:
             self.fabric = LoopbackFabric(workers=workers)
             self._mk_transport = self.fabric.transport
+        # fault-injection seam (faults/): nodes with a plan get their
+        # transport wrapped; with no plan nothing is constructed and
+        # behavior is byte-identical to a bare cluster
+        self._fault_plans = fault_plans or {}
+        self.fault_transports: Dict[str, object] = {}
+        self._retired_fault_transports: List[object] = []
         self._hello_timeout_s = hello_timeout_s
         self.control_kv = MemoryKV()  # the Consul analogue
 
@@ -217,6 +219,8 @@ class LocalCluster(SyncOps):
             generate_identity(nid, ident_dir)
         self.initiator = InitiatorKey.generate()
 
+        # per-node ctor state, retained so respawn_node() can rebuild a
+        # killed node's runtime stack over its surviving on-disk state
         self._ident_dir = ident_dir
         self._peers = {nid: nid for nid in self.node_ids}
         self._store_password = store_password
@@ -242,12 +246,15 @@ class LocalCluster(SyncOps):
             assert node.registry.wait_all_ready(10), "cluster failed to form"
         log.info("local cluster ready", nodes=n_nodes, threshold=threshold,
                  device=str(self.device))
-        self.client = MPCClient(self._mk_transport(), self.initiator)
+        self.client = MPCClient(
+            self._wrap_faults("client", self._mk_transport()), self.initiator
+        )
 
     def _spawn_node(self, nid: str) -> EventConsumer:
         """Build one node's full runtime stack — identity, encrypted share
-        store, optional session-WAL store, registry, transport, Node,
-        consumers — exactly the daemon boot sequence."""
+        store (at its canonical on-disk path), optional session-WAL store,
+        registry, transport, Node, consumers — exactly the daemon boot
+        sequence. Used at cluster construction and by :meth:`respawn_node`."""
         identity = IdentityStore(
             self._ident_dir, nid, self._peers,
             initiator_pubkey=self.initiator.public_bytes,
@@ -261,7 +268,7 @@ class LocalCluster(SyncOps):
         registry = PeerRegistry(
             nid, self.node_ids, self.control_kv, poll_interval_s=0.05
         )
-        transport = self._mk_transport()
+        transport = self._wrap_faults(nid, self._mk_transport())
         node = Node(
             node_id=nid,
             peer_ids=self.node_ids,
@@ -303,8 +310,36 @@ class LocalCluster(SyncOps):
         return t
 
     def respawn_node(self, node_id: str) -> EventConsumer:
-        raise NotImplementedError(
-            "respawn_node is not ported (ROADMAP queue 1, item 6)")
+        """In-process 'restart after SIGKILL': rebuild ``node_id``'s entire
+        runtime over its surviving on-disk state (identity keys, encrypted
+        share store, session WALs) on the cluster's device, the way a
+        fresh daemon boot would, then replay incomplete WAL sessions. The
+        dead incarnation's objects are deliberately left in place — a
+        killed process never cleans up; its crashed transport keeps
+        black-holing whatever still reaches it."""
+        old_ft = self.fault_transports.pop(node_id, None)
+        if old_ft is not None:
+            self._retired_fault_transports.append(old_ft)
+        ec = self._spawn_node(node_id)
+        # boot-time crash recovery, after ready() — mirrors daemon.run_node
+        ec.resume_incomplete()
+        return ec
+
+    def _wrap_faults(self, owner: str, transport):
+        """Wrap ``transport`` in a FaultyTransport when a fault plan is
+        installed for ``owner`` (or under the "*" wildcard, which the
+        client does not take). No plan ⇒ the bare transport passes
+        through untouched."""
+        plan = self._fault_plans.get(owner) or (
+            self._fault_plans.get("*") if owner != "client" else None
+        )
+        if plan is None:
+            return transport
+        from .faults.transport import FaultyTransport
+
+        ft = FaultyTransport(transport, owner, plan)
+        self.fault_transports[owner] = ft
+        return ft
 
     def health(self) -> Dict[str, dict]:
         """Per-node operational snapshots (EventConsumer.health): live
@@ -345,6 +380,9 @@ class LocalCluster(SyncOps):
             sc.close()
         for node in self.nodes.values():
             node.registry.resign()
+        for ft in list(self.fault_transports.values()) + \
+                self._retired_fault_transports:
+            ft.close()
         if self.fabric is not None:
             self.fabric.close()
         for t in self._tcp:

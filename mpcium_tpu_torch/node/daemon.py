@@ -20,8 +20,10 @@ runs the plain versions. Where the JAX daemon differs:
   ``<db_dir>/<name>/trace_shutdown.json``;
 - the session axis is not sharded over local devices: the node computes
   on the one device it was given (ROADMAP queue 1, item 7);
-- fault plans (item 6) and the warm-start pass (item 8) are not ported
-  and raise ``NotImplementedError``.
+- the warm-start pass is not ported and raises ``NotImplementedError``
+  (ROADMAP queue 1, item 8);
+- a daemon with a fault plan closes its faulty transport's timers on
+  shutdown.
 """
 from __future__ import annotations
 
@@ -119,9 +121,6 @@ def run_node(
     # resolve first: a node without its card raises before it connects
     dev = resolve(device)
     cfg = init_config(config_path)
-    if fault_plan is not None or cfg.chaos_fault_plan:
-        raise NotImplementedError(
-            "fault plans are not ported (ROADMAP queue 1, item 6)")
     if cfg.warm_enabled:
         raise NotImplementedError(
             "the warm-start pass is not ported (ROADMAP queue 1, item 8)")
@@ -144,6 +143,16 @@ def run_node(
     if decrypt_private_key and passphrase is None:
         passphrase = getpass.getpass(f"passphrase for {name} identity key: ")
 
+    # chaos seam: an explicit plan argument or the chaos_fault_plan
+    # config knob (path to a plan JSON) wraps this daemon's transport in
+    # a FaultyTransport; the JSON loads before anything connects. Absent
+    # both — the normal case — nothing is constructed.
+    fault_plan = fault_plan or (cfg.chaos_fault_plan or None)
+    if isinstance(fault_plan, (str, Path)):
+        from ..faults.plan import FaultPlan
+
+        fault_plan = FaultPlan.from_json(Path(fault_plan).read_text())
+
     # transport first: with the broker control plane the SAME connection
     # serves registry/keyinfo/peers
     from ..transport.tcp import parse_addrs
@@ -155,6 +164,14 @@ def run_node(
         standbys=parse_addrs(cfg.broker_standbys),
         workers=_workers(cfg),
     )
+    # chaos seam: the plan (loaded above) wraps this daemon's transport
+    if fault_plan is not None:
+        from ..faults.transport import FaultyTransport
+
+        transport = FaultyTransport(transport, name, fault_plan)
+        # the fault-plan seed is the chaos replay handle; not key material
+        log.warn("CHAOS: fault plan installed", node=name,
+                 seed=fault_plan.seed, rules=fault_plan.describe())
     if cfg.control_plane == "broker":
         from ..store.broker_kv import BrokerKV
 
@@ -248,6 +265,8 @@ def run_node(
     signing.close()
     consumer.close()
     registry.resign()
+    if fault_plan is not None:
+        transport.close()
     transport.client.close()
     dump_trace(node_dir / TRACE_DUMP, name)
     return 0

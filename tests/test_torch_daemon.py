@@ -5,9 +5,10 @@ networked deployment on the CPU:
   broker control plane: the node registers, its health beat carries the
   ``compile`` section and the flight recorder's ``trace.dropped_spans``,
   and it closes with no client thread left; ``run_node`` without a device
-  raises where there is no GPU, and the parts not ported (fault plans,
-  the warm-start pass) raise ``NotImplementedError`` before anything
-  connects;
+  raises where there is no GPU, and the part not ported (the warm-start
+  pass) raises ``NotImplementedError`` before anything connects; a
+  ``chaos_fault_plan`` JSON (or a ``fault_plan`` object) wraps the
+  daemon's transport in ``FaultyTransport``;
 - ``publish_health`` / ``health_loop`` (as ``tests/test_daemon_health.py``
   checks the JAX package's) and ``load_peers``;
 - the CLIs' parsers, and ops-CLI files (peers, registries, identities,
@@ -203,14 +204,63 @@ def test_run_node_over_a_port_broker(tmp_path, monkeypatch):
         broker.close()
 
 
-@pytest.mark.parametrize("extra,item", [("chaos_fault_plan: plan.json\n", "item 6"),
-                                        ("warm_enabled: true\n", "item 8")])
+@pytest.mark.parametrize("extra,item", [("warm_enabled: true\n", "item 8")])
 def test_run_node_raises_for_the_parts_not_ported(tmp_path, extra, item):
     ws = _workspace(tmp_path, 9, extra)
     before = set(threading.enumerate())
     with pytest.raises(NotImplementedError, match=item):
         run_node("node0", config_path=str(ws / "config.yaml"), block=False, device="cpu")
     assert set(threading.enumerate()) <= before
+
+
+@pytest.mark.parametrize("via", ["config", "argument"])
+def test_chaos_fault_plan_wraps_the_daemon_transport(tmp_path, via):
+    """A plan JSON named by the ``chaos_fault_plan`` key (or a plan
+    object passed as ``fault_plan=``) wraps the daemon's transport in a
+    ``FaultyTransport``: its drop rule drops what it matches, in the
+    transport's stats, the rest passes, and the broker control plane
+    still rides the wrapped bundle's client."""
+    from mpcium_tpu_torch.faults import FaultPlan, FaultyTransport, drop
+
+    plan = FaultPlan(5, [drop(p=1.0, topic="probe:*", channel="pubsub")])
+    (tmp_path / "plan.json").write_text(json.dumps(plan.to_json()))
+    broker = BrokerServer(port=0)
+    extra = f"chaos_fault_plan: {tmp_path / 'plan.json'}\n" if via == "config" else ""
+    ws = _workspace(tmp_path, broker.port, extra)
+    probe = tcp_transport(broker.host, broker.port)
+    started = None
+    try:
+        started = run_node("node0", config_path=str(ws / "config.yaml"), block=False,
+                           device="cpu", fault_plan=plan if via == "argument" else None)
+        node, consumer, signing, registry = started
+        ft = node.transport
+        assert isinstance(ft, FaultyTransport) and ft.node_id == "node0"
+        assert ft.plan.to_json() == plan.to_json()
+        assert wait_for(lambda: "ready/node0" in BrokerKV(probe.client).keys("ready/"), 10)
+        got = []
+        for topic in ("probe:*", "other:*"):
+            probe.pubsub.subscribe(topic, got.append)
+
+        def passes(data: bytes) -> bool:  # once the subscriptions are live
+            ft.pubsub.publish("other:1", data)
+            return wait_for(lambda: data in got, 0.5)
+
+        assert wait_for(lambda: passes(b"live"), 10.0)
+        ft.pubsub.publish("probe:1", b"dropped")
+        assert passes(b"after") and b"dropped" not in got
+        assert ft.stats.to_json()["counters"] == {"drop#0": {"drop": 1}}
+    finally:
+        if started is not None:
+            node, consumer, signing, registry = started
+            signing.close()
+            consumer.close()
+            registry.resign()
+            node.transport.close()
+            node.transport.client.close()
+        trace.disarm()
+        compile_watch.reset()
+        probe.client.close()
+        broker.close()
 
 
 def test_run_node_and_start_without_a_device_raise_here(tmp_path):

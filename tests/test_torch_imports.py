@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``mpcium_tpu_torch/`` and not
-``chip_smoke.py`` imports JAX or the JAX package (``mpcium_tpu``), at
-the top of a file or inside a function. The card's machine has no JAX,
+"""The port stands alone: no module of ``mpcium_tpu_torch/``, not
+``chip_smoke.py`` and not the port's soak and chaos scripts import JAX or
+the JAX package (``mpcium_tpu``), at the top of a file or inside a
+function. The card's machine has no JAX,
 and the port keeps its own copy of what it needs."""
 from __future__ import annotations
 
@@ -11,7 +12,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "mpcium_tpu"}
-SOURCES = sorted((ROOT / "mpcium_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SCRIPTS = ["torch_chaos_drill.py", "torch_load_soak.py", "torch_chaos_soak_alone.py"]
+SOURCES = sorted((ROOT / "mpcium_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+    ROOT / "scripts" / name for name in SCRIPTS]
 
 
 def _imports(path: Path):
@@ -54,6 +57,13 @@ def test_the_guard_sees_every_port_module_and_every_import_form(tmp_path):
     assert all((ROOT / "mpcium_tpu" / f"{m}.py").is_file() for m in deployment)
     # and the port's own launcher of a local deployment (no JAX counterpart)
     assert "mpcium_tpu_torch/cli/deployment.py" in names
+    # soak and chaos: the JAX package's modules of the same paths, the
+    # two CLIs and the chip script's runner of phases 26 and 27
+    chaos = ["faults/__init__", "faults/plan", "faults/transport", "faults/chaos", "soak",
+             "perf/envfp", "warm/prewarm"]
+    assert {f"mpcium_tpu_torch/{m}.py" for m in chaos} <= names
+    assert all((ROOT / "mpcium_tpu" / f"{m}.py").is_file() for m in chaos)
+    assert {f"scripts/{n}" for n in SCRIPTS} <= names
     sample = tmp_path / "sample.py"
     sample.write_text("import jax.numpy as jnp\n"
                       "def f():\n"
