@@ -203,8 +203,11 @@ over an encrypted TCP broker, driven through ``RemoteCluster``):
     daemons on their default device, the GPU; each builds K0 at its first
     launch), with ``control_plane: broker``, the token in
     ``MPCIUM_BROKER_TOKEN``, the copy of the safe-prime pool, phase 24's
-    batching settings and ``reply_timeout_s`` 900 in ``config.yaml``.
-    Through ``RemoteCluster``: DEPLOY_W wallets created in one burst,
+    batching settings, ``reply_timeout_s`` 900 and a warm pass at boot
+    (``DEPLOY_WARM``: ``warm_enabled``, ``warm_schemes: eddsa``,
+    ``warm_max_b: 4``) in ``config.yaml``; the deployment waits until every
+    daemon has seen its peers and finished its boot. Through
+    ``RemoteCluster``: DEPLOY_W wallets created in one burst,
     DEPLOY_W ECDSA + DEPLOY_W EdDSA signs, every wallet rotated on both
     curves (t=1, epoch 1 in the broker's keyinfo, keys kept) and signed
     again. Read from ``health/<node>`` in the broker KV after each stage:
@@ -214,7 +217,10 @@ over an encrypted TCP broker, driven through ``RemoteCluster``):
     (both entries at both widths, every powmod mode of the path, no plain
     call) and stayed put around create and reshare, and at the end the
     ``compile`` section reads ready with the K0 build entry (cache hit or
-    miss). No result may be a timeout and no dead letter may arrive.
+    miss). No result may be a timeout and no dead letter may arrive, and
+    every daemon's warm report (``WARM_MANIFEST.json``) must show its
+    three EdDSA buckets warmed (or already run) on the card, none failed
+    or skipped.
     Then SIGTERM to every daemon and to the broker: each must exit 0
     within 30 s, and node0's flight recorder (written at shutdown) must
     pass ``trace.validate_chrome``. Its client runs on a spawned process
@@ -252,6 +258,31 @@ end):
     request has one), ``scheduler.fallback_total`` and
     ``scheduler.declined_total`` read 0 on every node, and at least one
     batch fired on the card.
+
+The daemon's boot (both phases run in phase 25's child process after
+its deployment returns, phase 29 first, in a process that has not
+touched the card, as a daemon's boot has not; the main process prints
+their lines after phase 25's):
+
+28. sharded — the session axis split over meshes whose entries are all
+    the one card (``torch.cuda.device_count()`` is printed): the EdDSA
+    two-phase step (``engine.sharded.sharded_sign``, the host SHA-512
+    between the phases) at SHARDED_EDDSA_B on a one-device mesh and on
+    the meshes of SHARDED_MESHES (committee 1 over two entries, committee
+    2 over four); the GG18 curve leg of the JAX dry run
+    (``shard_gg18_sessions`` + ``gg18_curve_leg``) at SHARDED_GG18_B,
+    unsharded and over SHARDED_GG18_MESH shards; and K0's product over
+    the 2048-bit Paillier N of the fixture at SHARDED_MULMOD_B through one
+    context and through ``sharded_mulmod`` (K0's counters zeroed just
+    before: one launch per shard, no plain call). Each sharded result
+    must equal its unsharded run byte for byte, the products python
+    ints, and every signature must verify on the host. The line gives
+    each run's wall beside the unsharded one and the meshes as built.
+29. warm — ``warm.prewarm.prewarm`` on the card over every serving
+    engine at bucket 1 (the four schemes, q=2, both curves, both MtA
+    backends; 12 entries): every entry warmed on ``cuda``, none failed
+    or skipped, K0 launched by the two Paillier entries only (their
+    ``cache`` is K0's build verdict); ``warm_s`` per entry.
 
 Every host verification runs the port's python-int verifiers over all
 signatures, spread over a pool of worker processes (one per host core).
@@ -1043,7 +1074,8 @@ def run_eddsa_slice(B: int, seed: int, K, dev: str = "cuda"):
     bad[lane, 40] ^= 0x10
     c64 = eb.challenge_hashes(bad[:, :32], signer.A_comp, msgs, dev)
     t0 = time.perf_counter()
-    dev_ok = eb.verify_signatures(torch.as_tensor(bad, device=dev), signer._A_dev,
+    dev_ok = eb.verify_signatures(torch.as_tensor(bad, device=dev),
+                                  torch.as_tensor(signer.A_comp, device=dev),
                                   torch.as_tensor(c64, device=dev)).cpu().numpy()
     tamper_verify_s = time.perf_counter() - t0
     tamper_ok = (not dev_ok[lane]) and bool(np.delete(dev_ok, lane).all())
@@ -2298,8 +2330,10 @@ def join_serving(future, t_submit: float) -> dict:
 # ---------------------------------------------------------------------------
 
 DEPLOY_W = 64  # wallets created, signed, rotated and signed again per curve
-# the daemons' batching settings: phase 24's (SERVING_CFG) as config keys
-DEPLOY_CFG = {k: v for k, v in SERVING_CFG.items() if k != "hello_timeout_s"}
+# the daemons' batching settings: phase 24's (SERVING_CFG) as config keys,
+# and a warm pass at boot over the EdDSA buckets up to 4
+DEPLOY_WARM = {"warm_enabled": True, "warm_schemes": "eddsa", "warm_max_b": 4}
+DEPLOY_CFG = {**{k: v for k, v in SERVING_CFG.items() if k != "hello_timeout_s"}, **DEPLOY_WARM}
 HEALTH_KEYS = ("fallback_total", "shed_total", "quarantined_total", "declined_total",
                "batches_fired_total", "submitted_total")
 
@@ -2324,6 +2358,18 @@ def _health_delta(h0: dict, h1: dict) -> dict:
                     **{k: grew("counters", f"scheduler.{k}") for k in HEALTH_KEYS},
                     "k0": {k: v for k, v in k0.items() if v}}
     return out
+
+
+def _warm_report(node_db: Path) -> dict:
+    """A daemon's boot-time warm report (``WARM_MANIFEST.json`` in its
+    warm directory): totals, the devices it ran on, seconds per entry."""
+    from mpcium_tpu_torch.warm import manifest as wm
+    from mpcium_tpu_torch.warm.prewarm import default_cache_dir
+
+    rep = json.loads((Path(default_cache_dir(str(node_db))) / wm.REPORT_BASENAME).read_text())
+    return {"totals": rep["totals"], "budget_s": rep["budget_s"],
+            "devices": sorted({r["device"] for r in rep["results"]}),
+            "warm_s": {r["shape"]: r.get("warm_s") for r in rep["results"]}}
 
 
 def deployment_run(W: int, seed: int, dev=None, root: Path = None) -> dict:
@@ -2474,7 +2520,14 @@ def deployment_run(W: int, seed: int, dev=None, root: Path = None) -> dict:
     doc = json.loads((root / "node0" / "db" / "node0" / TRACE_DUMP).read_text())
     record["trace_node0"] = {"events": validate_chrome(doc),
                              "dropped_spans": doc["otherData"]["dropped_spans"]}
+    record["warm"] = {nid: _warm_report(root / nid / "db" / nid) for nid in dep.nodes}
     shutil.rmtree(root, ignore_errors=True)
+    bad = {nid: w for nid, w in record["warm"].items()
+           if w["totals"]["failed"] or w["totals"]["skipped"] or w["totals"]["entries"] != 3
+           or w["totals"]["warmed"] + w["totals"]["already"] != w["totals"]["entries"]
+           or w["devices"] != ["cpu" if dev == "cpu" else "cuda"]}
+    if bad:
+        raise AssertionError(f"deployment: warm reports {bad}")
     return {"record": record, "stages": stages, "checks": checks}
 
 
@@ -2493,17 +2546,20 @@ def _deployment_task(W: int, seed: int) -> dict:
 
 def start_deployment(W: int, seed: int):
     """Start phase 25 on a spawned process, niced like phase 24's (the
-    daemons inherit it); it overlaps the phases after the kernel timings."""
+    daemons inherit it); it overlaps the phases after the kernel timings.
+    Phases 29 and 28 are the worker's second task: they run after the
+    deployment returns."""
     global _DEPLOY_POOL
     _DEPLOY_POOL = spawned_pool()
-    return _DEPLOY_POOL.submit(_deployment_task, W, seed), time.perf_counter()
+    t_submit = time.perf_counter()
+    return (_DEPLOY_POOL.submit(_deployment_task, W, seed),
+            _DEPLOY_POOL.submit(_boot_task, seed), t_submit)
 
 
 def join_deployment(future, t_submit: float, serving: dict) -> dict:
     t0 = time.perf_counter()
     res = future.result()
     wait_s = time.perf_counter() - t0
-    _DEPLOY_POOL.shutdown()
     serving_finish(res, {"overlapped": True, "join_wait_s": wait_s,
                             "since_submit_s": time.perf_counter() - t_submit,
                             "phase24_stage_walls_s": {
@@ -2511,6 +2567,228 @@ def join_deployment(future, t_submit: float, serving: dict) -> dict:
                                     "eddsa_wall_s": v.get("eddsa_wall_s")}
                                 for k, v in serving["stages"].items()}}, "deployment")
     return res
+
+
+# ---------------------------------------------------------------------------
+# phases 28 and 29: the daemon's boot — the session axis over several
+# devices (engine/sharded.py) and the budgeted warm pass (warm/)
+# ---------------------------------------------------------------------------
+
+SHARDED_EDDSA_B = 4096  # BASELINE config 2's batch
+SHARDED_GG18_B = 1024
+SHARDED_MULMOD_B = 1024
+# committee → mesh entries, every one the card: one card splits and gathers
+SHARDED_MESHES = {1: 2, 2: 4}
+SHARDED_GG18_MESH = 4  # session shards of the GG18 leg and the K0 leg (committee 1)
+WARM_BUDGET_S = 600.0
+
+
+def _mesh_dev(dev: str) -> str:
+    return "cuda:0" if dev == "cuda" else dev
+
+
+def _walled(fn, dev: str):
+    """fn() → (its result, wall seconds with the device synchronized)."""
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def sharded_run(seed: int, K, dev: str = "cuda") -> dict:
+    """Phase 28's work: the EdDSA two-phase step (``sharded_sign``) at
+    SHARDED_EDDSA_B on a one-device mesh and on the meshes of
+    SHARDED_MESHES, the GG18 curve leg (``shard_gg18_sessions`` +
+    ``gg18_curve_leg``) at SHARDED_GG18_B unsharded and over
+    SHARDED_GG18_MESH shards, and K0's modular product over a 2048-bit
+    Paillier N at SHARDED_MULMOD_B through one context and through
+    ``sharded_mulmod`` (K0's counters zeroed just before: one launch per
+    shard, no plain call). Each sharded result must equal its unsharded
+    run byte for byte, the products python ints. A first unsharded run of
+    each leg pays the process's first-use costs and is reported apart.
+    → the record and the signatures, which :func:`sharded_finish`
+    verifies on the host."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from mpcium_tpu_torch.cluster import load_test_preparams
+    from mpcium_tpu_torch.core import bignum as bn
+    from mpcium_tpu_torch.engine import gg18_batch as gb
+    from mpcium_tpu_torch.engine import sharded
+    from mpcium_tpu_torch.ops.modmul import MXUBarrett
+    from mpcium_tpu_torch.utils import sharded_golden as sg
+
+    md = _mesh_dev(dev)
+    rec = {"phase": "sharded", "device": md, "seed": seed,
+           "cuda_device_count": torch.cuda.device_count(),
+           "note": "every mesh entry is the one card: the split and the gathers are real, "
+                   "the pieces run one after another on it"}
+    fail = []
+    # -- the EdDSA two-phase step ------------------------------------------------
+    t0 = time.perf_counter()
+    inp = sg.eddsa_inputs(SHARDED_EDDSA_B)
+    rec["eddsa_keygen_s"] = time.perf_counter() - t0
+    args = (inp["r64"], inp["lamx"], inp["A_comp"], inp["messages"])
+    meshes = {"unsharded": sharded.make_mesh([md], committee=1)}
+    meshes.update({f"committee_{c}": sharded.make_mesh([md] * n, committee=c)
+                   for c, n in SHARDED_MESHES.items()})
+    _, rec["eddsa_first_s"] = _walled(lambda: sharded.sharded_sign(meshes["unsharded"], *args),
+                                      dev)
+    ed, outs = {}, {}
+    for name, mesh in meshes.items():
+        outs[name], wall = _walled(lambda: sharded.sharded_sign(mesh, *args), dev)
+        ed[name] = {"mesh": mesh.describe(), "wall_s": wall,
+                    "sigs_per_s": SHARDED_EDDSA_B / wall, "ok_all": bool(outs[name][1].all())}
+    ref = outs["unsharded"]
+    for name, (sigs, ok) in outs.items():
+        ed[name]["equal_to_unsharded"] = bool(np.array_equal(sigs, ref[0])
+                                              and np.array_equal(ok, ref[1]))
+        if not (ed[name]["equal_to_unsharded"] and ed[name]["ok_all"]):
+            fail.append(f"eddsa {name}")
+    rec["eddsa"] = {"B": SHARDED_EDDSA_B, "q": 2, "runs": ed}
+    # -- the GG18 curve leg ------------------------------------------------------
+    t0 = time.perf_counter()
+    shares, digests = sg.gg18_wallets(gb, SHARDED_GG18_B)
+    rec["gg18_keygen_s"] = time.perf_counter() - t0
+    gmesh = sharded.make_mesh([md] * SHARDED_GG18_MESH, committee=1)
+
+    def signer(mesh):
+        s = gb.GG18BatchCoSigners.curve_only(sg.QUORUM, shares[:2], rng=sg.gg18_signer_rng(),
+                                             device=md)
+        if mesh is not None:
+            sharded.shard_gg18_sessions(s, mesh)
+        return s
+
+    first = signer(None)
+    _, rec["gg18_first_s"] = _walled(lambda: sharded.gg18_curve_leg(first, digests), dev)
+    legs, gg = {}, {}
+    for name, mesh in (("unsharded", None), ("sharded", gmesh)):
+        s, shard_s = _walled(lambda: signer(mesh), dev)
+        legs[name], wall = _walled(lambda: sharded.gg18_curve_leg(s, digests), dev)
+        gg[name] = {"mesh": None if mesh is None else mesh.describe(), "setup_s": shard_s,
+                    "wall_s": wall, "ok_all": bool(legs[name]["ok"].all())}
+    gg["sharded"]["equal_to_unsharded"] = all(
+        np.array_equal(legs["sharded"][k], legs["unsharded"][k]) for k in ("r", "s", "ok"))
+    if not (gg["sharded"]["equal_to_unsharded"] and gg["sharded"]["ok_all"]):
+        fail.append("gg18 leg")
+    rec["gg18"] = {"B": SHARDED_GG18_B, "q": 2, "runs": gg}
+    # -- K0 over the mesh ----------------------------------------------------------
+    N = load_test_preparams(2048)["node0"].paillier.N
+    ctx = MXUBarrett(N, device=md)
+    rng = random.Random(seed + 28)
+    xs = [0, 1, N - 1] + [rng.randrange(N) for _ in range(SHARDED_MULMOD_B - 3)]
+    ys = [N - 1, N - 1, N - 1] + [rng.randrange(N) for _ in range(SHARDED_MULMOD_B - 3)]
+    a, b = bn.batch_to_limbs(xs, ctx.prof), bn.batch_to_limbs(ys, ctx.prof)
+    whole, whole_s = _walled(lambda: ctx.mulmod(torch.as_tensor(a, device=md),
+                                                torch.as_tensor(b, device=md)).cpu().numpy(), dev)
+    K.reset_counters()
+    got, split_s = _walled(lambda: sharded.sharded_mulmod(gmesh, N, a, b), dev)
+    k0 = _k0_counts(K)
+    per_device = {str(d): gmesh.session_devices.count(d) for d in gmesh.device_set}
+    mm = {"B": SHARDED_MULMOD_B, "modulus_bits": N.bit_length(), "n_limbs": ctx.prof.n_limbs,
+          "mesh": gmesh.describe(), "unsharded_s": whole_s, "sharded_s": split_s,
+          "k0": _k0_json(k0), "k0_launches_per_device": per_device,
+          "equal_to_unsharded": bool(np.array_equal(got, whole)),
+          "equal_to_python": bn.batch_from_limbs(got, ctx.prof) == [
+              x * y % N for x, y in zip(xs, ys)]}
+    rec["mulmod"] = mm
+    on_card = dev != "cpu"
+    if not (mm["equal_to_unsharded"] and mm["equal_to_python"]) or (
+            (k0["launches"] != SHARDED_GG18_MESH or k0["plain_calls"]) if on_card
+            else (k0["launches"] or k0["plain_calls"] != SHARDED_GG18_MESH)):
+        fail.append(f"mulmod {mm}")
+    rec["failed"] = fail
+    return {"record": rec,
+            "eddsa": (inp["public_keys"], inp["messages"], outs["committee_2"][0]),
+            "ecdsa": ([s.public_key for s in shares[0]], [bytes(d) for d in digests],
+                      legs["sharded"]["r"], legs["sharded"]["s"])}
+
+
+def sharded_finish(res: dict, extra: dict) -> None:
+    """Verify every signature of phase 28 on the host pool (the sharded
+    runs'; the others equal them byte for byte), print its line and fail
+    on any fault."""
+    rec = res["record"]
+    th = time.perf_counter()
+    rec["verified_eddsa"] = verify_ed25519(*res["eddsa"])
+    rec["verified_ecdsa"] = verify_ecdsa(*res["ecdsa"])
+    rec["host_verify_s"] = time.perf_counter() - th
+    emit({**rec, **extra})
+    if rec["failed"] or rec["verified_eddsa"] != SHARDED_EDDSA_B \
+            or rec["verified_ecdsa"] != SHARDED_GG18_B:
+        raise AssertionError(f"sharded: {rec['failed']}, verified "
+                             f"{rec['verified_eddsa']} / {rec['verified_ecdsa']}")
+
+
+def warm_run(K, dev: str = "cuda") -> dict:
+    """Phase 29: ``warm.prewarm`` on the card over every serving engine at
+    bucket 1 (four schemes, q=2, both curves, both MtA backends, the
+    1024-bit fixture): every entry must warm on the device, none fail or
+    be skipped; the entries that launch K0 (the Paillier MtA) report its
+    build verdict, the rest ``none``. → the phase record."""
+    from mpcium_tpu_torch.warm import manifest as wm
+    from mpcium_tpu_torch.warm import prewarm as pw
+
+    manifest = wm.build_manifest(wm.WarmKnobs(), buckets=(1,))
+    K.reset_counters()
+    t0 = time.perf_counter()
+    rep = pw.prewarm(manifest, WARM_BUDGET_S, device=dev)
+    rec = {"phase": "warm", "device": dev, "budget_s": WARM_BUDGET_S,
+           "wall_s": time.perf_counter() - t0, "totals": rep["totals"], "key": rep["key"],
+           "entries": [{k: r.get(k) for k in ("engine", "shape", "status", "warm_s", "cache",
+                                                "compile_s", "device", "reason")}
+                       for r in rep["results"]],
+           "k0": _k0_json(_k0_counts(K))}
+    t = rep["totals"]
+    k0_engines = {r["engine"] for r in rep["results"] if r.get("cache") not in (None, "none")}
+    want_k0 = {"gg18.sign", "party.ecdsa"} if dev != "cpu" else set()
+    rec["k0_entries"] = sorted(k0_engines)
+    rec["failed_checks"] = [c for c, bad in (
+        ("every entry warmed", t["warmed"] != t["entries"] or t["entries"] != 12),
+        ("nothing failed or skipped", t["failed"] or t["skipped"]),
+        ("on the device", any(r["device"] != str(pw.resolve(dev)) for r in rep["results"])),
+        ("K0 on the Paillier entries", k0_engines != want_k0)) if bad]
+    return rec
+
+
+def _boot_task(seed: int) -> dict:
+    """Phases 29 and 28 on phase 25's worker after its deployment (the
+    lane that ends first): the warm pass first, in a process that has not
+    touched the card yet, as a daemon's boot has not."""
+    import torch
+
+    from mpcium_tpu_torch.ops import mulmod as K
+    from mpcium_tpu_torch.utils import log
+
+    log.init(level="WARNING")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = since_start()
+    warm = warm_run(K)
+    warm.update(t_start_s=t0, t_end_s=since_start())
+    t1 = since_start()
+    res = sharded_run(seed, K)
+    res["record"].update(t_start_s=t1, t_end_s=since_start())
+    return {"warm": warm, "sharded": res}
+
+
+def boot_finish(res: dict, extra: dict) -> None:
+    warm = res["warm"]
+    emit({**warm, **extra})
+    sharded_finish(res["sharded"], extra)
+    if warm["failed_checks"]:
+        raise AssertionError(f"warm: {warm['failed_checks']}: {warm['entries']}")
+
+
+def join_boot(future, t_submit: float) -> None:
+    """Wait for phases 29 and 28 (phase 25's worker), then finish them."""
+    t0 = time.perf_counter()
+    res = future.result()
+    wait_s = time.perf_counter() - t0
+    _DEPLOY_POOL.shutdown()
+    boot_finish(res, {"overlapped": True, "join_wait_s": wait_s,
+                      "since_submit_s": time.perf_counter() - t_submit})
 
 
 def main() -> int:
@@ -2559,7 +2837,7 @@ def main() -> int:
     # phases 19, 24 and 25 overlap the phases from here on (after the kernel timings)
     life_future, chaos_future, t_life = start_lifecycle(LIFECYCLE_B, args.seed)
     serving_future, t_serving = start_serving(SERVING_W, args.seed)
-    deploy_future, t_deploy = start_deployment(DEPLOY_W, args.seed)
+    deploy_future, boot_future, t_deploy = start_deployment(DEPLOY_W, args.seed)
     by_width, by_mode, shares = run_slice(args.batch, args.seed, pre, K)
     emit({
         "phase": "wrapper_host", "note": "launches in the warm sign x host ms "
@@ -2590,6 +2868,7 @@ def main() -> int:
     life = join_lifecycle(life_future, t_life)
     serving = join_serving(serving_future, t_serving)
     join_deployment(deploy_future, t_deploy, serving)
+    join_boot(boot_future, t_deploy)
     join_chaos_soak(chaos_future, t_life)
     emit({"phase": "wall", "script_s": time.perf_counter() - t_script,
           "note": "from the start of main() to here"})

@@ -94,7 +94,8 @@ class Deployment:
 
     def start(self, t_limit: float = 300.0) -> dict:
         """Bootstrap, start the broker and the daemons, and wait until every
-        node has seen all its peers → seconds per step."""
+        node has seen all its peers and finished its boot (its warm pass
+        included) → seconds per step."""
         t0 = time.perf_counter()
         self.staging.mkdir(parents=True)
         (self.root / "broker").mkdir()
@@ -128,8 +129,9 @@ class Deployment:
                         *(() if self.dev is None else ("--device", str(self.dev))))
         # the client's config: the same endpoint and channel, next to its key
         (self.staging / "config.yaml").write_text(self.config_text(pool, {}))
-        while not all(b"ALL PEERS ARE READY" in (self.root / f"{nid}.log").read_bytes()
-                      for nid in self.nodes):
+        while not all(b"ALL PEERS ARE READY" in log and b"node running" in log
+                      for log in ((self.root / f"{nid}.log").read_bytes()
+                                  for nid in self.nodes)):
             self._alive("start")
             if time.perf_counter() - t0 > t_limit:
                 raise RuntimeError("deployment: the nodes never saw all their peers: "

@@ -58,8 +58,8 @@ class AppConfig:
     chaos_fault_plan: str = ""  # path to a faults.FaultPlan JSON ("" = off)
     session_wal: bool = False  # encrypted per-round session WAL + crash resume
     peers_file: str = "peers.json"
-    # warm-start pass of the JAX package (not ported: the daemon raises
-    # for warm_enabled, ROADMAP queue 1 item 8)
+    # warm-start pass (warm/prewarm.prewarm_for_daemon): the daemon runs
+    # the serving buckets on its device before it reports ready
     warm_enabled: bool = False
     warm_budget_s: float = 300.0  # boot stays "warming" at most this long
     warm_schemes: str = "eddsa"  # comma list of eddsa,ecdsa,dkg,reshare ("" = all)

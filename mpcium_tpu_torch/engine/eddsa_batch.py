@@ -20,6 +20,13 @@ The JAX package's jitted kernels are plain functions here, and its
 donated round steps (``round_step_*``) return a new state dict; the
 signer takes an explicit ``device`` (None: the GPU, raising when there
 is none).
+
+Session-axis sharding (``engine/sharded.arm_session_axis``): torch has
+no sharded tensor, so where JAX lets GSPMD partition each dispatch, the
+engine splits a batch tensor at ingress (:func:`to_dev`) into one piece
+per session device of the armed mesh and runs the round steps piece by
+piece, each on its own device; the host egress joins the pieces in
+session order (:func:`gather_host`). The bytes are the unsharded ones.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from ..core import hostmath as hm
 from ..core.bignum import P256 as PROF
 from ..device import resolve
 from ..ops import hash_suite as hs
+from ..utils import tracing
 from ..utils.tracing import PhaseTimer
 from . import pipeline as pl
 
@@ -44,6 +52,42 @@ from . import pipeline as pl
 _WIDE_LIMBS = 43
 # the commitment domain: a wire constant shared with the JAX package
 COMMIT_PREFIX = b"mpcium-tpu/eddsa-commit"
+
+# The armed session mesh (engine/sharded.SessionMesh), process-global as
+# in the JAX package: with one armed, every batch tensor entering the
+# engine is split over its session devices. None: the party's device.
+_SESSION_MESH = None
+
+
+def arm_session_sharding(mesh) -> None:
+    """Install (or clear, with None) the mesh :func:`to_dev` splits over;
+    span syncs cover its devices from then on. Called by
+    ``engine.sharded.arm_session_axis``."""
+    global _SESSION_MESH
+    _SESSION_MESH = mesh
+    tracing.set_mesh_devices(() if mesh is None else mesh.device_set)
+
+
+def to_dev(x, axis: int = 0, device=None) -> Tuple[torch.Tensor, ...]:
+    """Engine ingress: ``x`` (host array or tensor) as one tensor per
+    session device of the armed mesh, split along ``axis`` in session
+    order. Callers MUST name the session axis: round tensors like
+    (q, B, 32) are party-leading, and splitting axis 0 there would split
+    the committee. With no mesh armed, or an axis whose length the mesh's
+    device count does not divide, one tensor on ``device`` (None: the
+    GPU) — JAX's default placement rather than a failed dispatch."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.array(x))
+    mesh = _SESSION_MESH
+    if mesh is None or t.dim() <= axis or t.shape[axis] % mesh.size:
+        return (t.to(resolve(device)),)
+    devs = mesh.session_devices
+    return tuple(p.to(d) for p, d in zip(t.tensor_split(len(devs), dim=axis), devs))
+
+
+def gather_host(pieces: Sequence[torch.Tensor], axis: int = 0) -> np.ndarray:
+    """Host egress: :func:`to_dev`'s pieces (or results computed from
+    them) joined back in session order."""
+    return np.concatenate([p.cpu().numpy() for p in pieces], axis=axis)
 
 
 def _reduce_wide(b64: torch.Tensor) -> torch.Tensor:
@@ -210,6 +254,11 @@ def challenge_hashes(
     if len(lens) == 1:
         M = np.frombuffer(b"".join(messages), np.uint8).reshape(len(messages), lens.pop())
         return challenge_device(R_comp, A_comp, M, device).cpu().numpy()
+    return challenge_hashes_host(R_comp, A_comp, messages)
+
+
+def challenge_hashes_host(R_comp, A_comp, messages: Sequence[bytes]) -> np.ndarray:
+    """Per-session SHA-512(R ‖ A ‖ M) with hashlib → (B, 64) uint8."""
     R, A = _host(R_comp), _host(A_comp)
     out = np.empty((len(messages), 64), dtype=np.uint8)
     for i, m in enumerate(messages):
@@ -292,8 +341,6 @@ class BatchedCoSigners:
         self.A_comp = np.stack(
             [np.frombuffer(s.public_key, dtype=np.uint8) for s in party_shares[0]]
         )
-        self._A_dev = torch.as_tensor(self.A_comp, device=self.device)
-        self._lamx_dev = torch.as_tensor(self.lamx, device=self.device)
 
     @torch.inference_mode()
     def sign(
@@ -307,15 +354,17 @@ class BatchedCoSigners:
         ``cohorts=`` overrides MPCIUM_PIPELINE_COHORTS). All nonce and
         blind bytes are drawn for the full batch, in the K=1 order,
         before the split, so signatures are bit-identical for every K.
-        Equal-length messages hash their challenges on the device; a
-        ragged batch hashes them on the host. ``phase_times``: optional
-        dict that receives wall seconds per phase (each cohort's own
-        rounds, cohorts added; the device is synchronized at each
-        mark)."""
+        Under an armed session mesh each cohort's slice is split again
+        over the mesh (:func:`to_dev`), and its pieces run the round steps
+        on their own devices. Equal-length messages hash their challenges
+        on the device; a ragged batch hashes them on the host.
+        ``phase_times``: optional dict that receives wall seconds per phase
+        (each cohort's own rounds, cohorts added; the devices are
+        synchronized at each mark)."""
         assert len(messages) == self.B
         q, B, dev = self.q, self.B, self.device
 
-        # all secret randomness precedes the cohort split
+        # all secret randomness precedes the cohort and mesh splits
         r64 = np.stack([fresh_nonce_bytes(B, self.rng) for _ in range(q)])
         blinds = np.stack([
             np.frombuffer(self.rng.token_bytes(B * 32), dtype=np.uint8).reshape(B, 32)
@@ -326,37 +375,45 @@ class BatchedCoSigners:
         lens = {len(m) for m in messages}
         Mrows = None
         if len(lens) == 1:
-            Mrows = hs.as_bytes(
-                np.frombuffer(b"".join(messages), np.uint8).reshape(B, lens.pop()), dev
-            )
-        pref = hs.as_bytes(COMMIT_PREFIX, dev)
+            Mrows = np.frombuffer(b"".join(messages), np.uint8).reshape(B, lens.pop())
+        prefs: dict = {}
+
+        def pref(d: torch.device) -> torch.Tensor:
+            if d not in prefs:
+                prefs[d] = hs.as_bytes(COMMIT_PREFIX, d)
+            return prefs[d]
 
         def job(sl: slice):
             def run():
                 pt = PhaseTimer(dev, phase_times)
-                st = {"r64": torch.as_tensor(r64[:, sl], device=dev),
-                      "blinds": torch.as_tensor(blinds[:, sl], device=dev)}
-                st = round_step_nonce(st, pref)
+                sts = [round_step_nonce({"r64": r, "blinds": b}, pref(r.device))
+                       for r, b in zip(to_dev(r64[:, sl], axis=1, device=dev),
+                                       to_dev(blinds[:, sl], axis=1, device=dev),
+                                       strict=True)]
                 pt.mark("r1_nonce_commit")
-                st = round_step_aggregate(st)
+                sts = [round_step_aggregate(st) for st in sts]
                 pt.mark("r2_decommit_aggregate")
-                ff = st["fraud_free"]
-                if not (yield ("fraud_verdict", lambda: bool(ff))):
+                ff = [st["fraud_free"] for st in sts]
+                if not (yield ("fraud_verdict", lambda: all(bool(f) for f in ff))):
                     raise RuntimeError("commitment fraud detected")
                 pt.restart()
-                A_c = self._A_dev[sl]
+                A_c = to_dev(self.A_comp[sl], device=dev)
                 if Mrows is not None:
-                    c64 = challenge_device(st["R_sum"], A_c, Mrows[sl])
+                    c64 = [challenge_device(st["R_sum"], a, m) for st, a, m in
+                           zip(sts, A_c, to_dev(Mrows[sl], device=dev), strict=True)]
                 else:
-                    c64 = torch.as_tensor(challenge_hashes(
-                        st["R_sum"], self.A_comp[sl], messages[sl]), device=dev)
-                st = round_step_partial(st, c64, self._lamx_dev[:, sl])
+                    c64 = to_dev(challenge_hashes_host(
+                        gather_host([st["R_sum"] for st in sts]), self.A_comp[sl],
+                        messages[sl]), device=dev)
+                sts = [round_step_partial(st, c, lx) for st, c, lx in zip(
+                    sts, c64, to_dev(self.lamx[:, sl], axis=1, device=dev), strict=True)]
                 pt.mark("r3_challenge_partials_combine")
                 # local verification before publishing
-                ok = verify_signatures(st["sigs"], A_c, c64) & st["ok_R"]
+                ok = [verify_signatures(st["sigs"], a, c) & st["ok_R"]
+                      for st, a, c in zip(sts, A_c, c64, strict=True)]
                 pt.mark("verify")
-                sigs = st["sigs"]
-                return (yield ("sig_egress", lambda: (sigs.cpu().numpy(), ok.cpu().numpy())))
+                sigs = [st["sigs"] for st in sts]
+                return (yield ("sig_egress", lambda: (gather_host(sigs), gather_host(ok))))
 
             return run
 

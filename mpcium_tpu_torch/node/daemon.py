@@ -4,12 +4,19 @@ The port's copy of the JAX package's ``node/daemon.py``. It wires every
 subsystem by hand like the reference (main.go:86-200): config → logging →
 control-plane KV → encrypted share store → keyinfo → identity → TCP bus
 transport → registry → node (pre-params) → event consumer + timeout
-consumer → ready → signing consumer, then blocks until SIGINT/SIGTERM.
+consumer → ready → signing consumer → the warm-start pass (with
+``warm_enabled``) → ready to serve, then blocks until SIGINT/SIGTERM.
 
 ``device`` is the node's card: the node, its event consumer and its batch
 scheduler build every batched party on it. ``None`` means the GPU and
-raises when there is none, before anything connects; ``device="cpu"``
-runs the plain versions. Where the JAX daemon differs:
+raises when there is none, before anything connects; the session axis of
+the batched EdDSA dispatches is then split over every local GPU
+(``engine/sharded.arm_session_axis``; one GPU arms nothing), as the JAX
+daemon splits it over every local chip. An explicit device is used
+alone: ``device="cpu"`` runs the plain versions. The warm-start pass
+(``warm/prewarm.prewarm_for_daemon``) runs the serving buckets on the
+node's device while health reads ``warming``. Where the JAX daemon
+differs:
 
 - the signing bridge waits ``reply_timeout_s`` (config; JAX fixes 30 s),
   and a batched node's TCP client sizes its handler pools for a full
@@ -18,10 +25,8 @@ runs the plain versions. Where the JAX daemon differs:
   batch answers;
 - on shutdown the node writes its flight recorder as Chrome trace JSON to
   ``<db_dir>/<name>/trace_shutdown.json``;
-- the session axis is not sharded over local devices: the node computes
-  on the one device it was given (ROADMAP queue 1, item 7);
-- the warm-start pass is not ported and raises ``NotImplementedError``
-  (ROADMAP queue 1, item 8);
+- arming the session axis is not wrapped in a warning: it builds no XLA
+  mesh, so a failure there is a fault and stops the boot;
 - a daemon with a fault plan closes its faulty transport's timers on
   shutdown.
 """
@@ -33,6 +38,8 @@ import signal
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 from ..config import check_required, init_config
 from ..consumers.event_consumer import EventConsumer
@@ -121,9 +128,6 @@ def run_node(
     # resolve first: a node without its card raises before it connects
     dev = resolve(device)
     cfg = init_config(config_path)
-    if cfg.warm_enabled:
-        raise NotImplementedError(
-            "the warm-start pass is not ported (ROADMAP queue 1, item 8)")
     log.init(
         production=cfg.environment == "production",
         level="DEBUG" if debug else "INFO",
@@ -219,6 +223,15 @@ def run_node(
         session_wal=session_wal,
         device=dev,
     )
+    # multi-GPU hosts split the session axis of batched dispatches over
+    # every local card (engine/sharded.py; one card arms nothing); an
+    # explicit device is used alone
+    from ..engine.sharded import arm_session_axis
+
+    mesh = arm_session_axis(None if device is None else [dev])
+    if device is None:
+        log.info("session axis", node=name, devices=torch.cuda.device_count(),
+                 sharded=mesh is not None)
     consumer = EventConsumer(
         node, transport,
         batch_signing=cfg.batch_signing,
@@ -245,6 +258,13 @@ def run_node(
         target=health_loop, args=(consumer, control_kv, name, health_stop),
         name=f"health-{name}", daemon=True,
     ).start()
+    # every subsystem is wired and subscribed: with warm_enabled the warm
+    # pass runs the serving buckets on the node's device while health
+    # still reads "warming"; ready once covered or out of warm_budget_s
+    if cfg.warm_enabled:
+        from ..warm.prewarm import prewarm_for_daemon
+
+        prewarm_for_daemon(cfg, name, dev)
     compile_watch.mark_ready()
     log.info("node running", node=name, device=str(dev),
              broker=f"{cfg.broker_host}:{cfg.broker_port}")

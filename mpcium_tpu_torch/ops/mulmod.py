@@ -224,11 +224,14 @@ def mulmod_cuda(a: torch.Tensor, b: torch.Tensor, c: MulmodConsts) -> torch.Tens
     out = torch.empty_like(a2)
     if rows == 0:
         return out.reshape(shape)
-    rc = build().mpcium_mulmod(
-        a2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        c.m_words.data_ptr(), c.mu_words.data_ptr(), rows, n, c.k,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    lib = build()
+    # the C entry launches on the current device: make it the tensors' one
+    with torch.cuda.device(dev):
+        rc = lib.mpcium_mulmod(
+            a2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+            c.m_words.data_ptr(), c.mu_words.data_ptr(), rows, n, c.k,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"mulmod kernel launch failed: CUDA error {rc}")
     with _count_lock:
@@ -392,15 +395,17 @@ def powmod_cuda(x, digits: torch.Tensor, c: MulmodConsts, mode: str,
 
 def launch_powmod(L: PowmodLaunch, c: MulmodConsts, out: torch.Tensor) -> int:
     """One launch of the powmod kernel's C entry on packed operands into
-    ``out`` (rows, n), on the current stream; counts nothing, checks
-    nothing, returns the CUDA error code."""
+    ``out`` (rows, n), on ``out``'s device and its current stream; counts
+    nothing, checks nothing, returns the CUDA error code."""
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    return build().mpcium_powmod(
-        ptr(L.x), L.digits.data_ptr(), ptr(L.table), out.data_ptr(),
-        c.m_words.data_ptr(), c.mu_words.data_ptr(), L.rows, c.n, c.k, L.nwin,
-        L.stride, POWMOD_MODES.index(L.mode),
-        torch.cuda.current_stream(out.device).cuda_stream,
-    )
+    lib = build()
+    with torch.cuda.device(out.device):
+        return lib.mpcium_powmod(
+            ptr(L.x), L.digits.data_ptr(), ptr(L.table), out.data_ptr(),
+            c.m_words.data_ptr(), c.mu_words.data_ptr(), L.rows, c.n, c.k, L.nwin,
+            L.stride, POWMOD_MODES.index(L.mode),
+            torch.cuda.current_stream(out.device).cuda_stream,
+        )
 
 
 def _table16(x: torch.Tensor, c: MulmodConsts):

@@ -127,6 +127,12 @@ def _write_ledger(snapshot: List[dict]) -> None:
         pass  # ledgering must never take the kernel build down
 
 
+def entries() -> List[dict]:
+    """The ledger entries of this process, oldest first."""
+    with _lock:
+        return list(_entries)
+
+
 def mark_warming() -> None:
     """Daemon boot: the node is alive but not serving yet."""
     global _state

@@ -73,6 +73,12 @@ def torch_version() -> Optional[str]:
         return None
 
 
+def cuda_version() -> Optional[str]:
+    """The CUDA toolkit an already-imported torch was built with (None
+    for a CPU build, or when torch is not imported)."""
+    return getattr(getattr(sys.modules.get("torch"), "version", None), "cuda", None)
+
+
 def device_facts() -> Dict[str, object]:
     """platform/kind/count of an ALREADY-imported torch, or
     ``{"platform": "uninitialized"}``; never imports torch."""
@@ -102,11 +108,10 @@ def knob_snapshot() -> Dict[str, str]:
 def env_fingerprint() -> Dict[str, object]:
     """The full stamp a soak record carries. Values are public build and
     machine facts only."""
-    torch = sys.modules.get("torch")
     fp: Dict[str, object] = {
         "git_sha": git_sha(),
         "torch": torch_version(),
-        "cuda": getattr(getattr(torch, "version", None), "cuda", None),
+        "cuda": cuda_version(),
         "python": ".".join(map(str, sys.version_info[:3])),
         "host": host_fingerprint(),
         "knobs": knob_snapshot(),

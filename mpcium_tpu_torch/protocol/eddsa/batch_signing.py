@@ -4,7 +4,8 @@ signs B wallets' messages concurrently.
 The port of ``mpcium_tpu/protocol/eddsa/batch_signing.py``: parties
 exchange fixed-shape byte blocks — (B·32)-byte commitment, nonce and
 partial-signature blocks — and compute each round with the batched
-engine (``engine/eddsa_batch``) on ``device``.
+engine (``engine/eddsa_batch``) on ``device``, or, under an armed session
+mesh, piece by piece on the mesh's devices (``eddsa_batch.to_dev``).
 
 Protocol (the 3-round commit–reveal threshold Schnorr, over the batch):
 
@@ -94,9 +95,6 @@ class BatchedEDDSASigningParty(PartyBase):
         self.A_comp = np.stack([np.frombuffer(s.public_key, dtype=np.uint8) for s in shares])
         self._stage = 0
 
-    def _dev(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.array(x), device=self.device)
-
     # -- rounds --------------------------------------------------------------
 
     def _bind(self) -> bytes:
@@ -112,10 +110,12 @@ class BatchedEDDSASigningParty(PartyBase):
             def job():
                 with tracing.span("phase:bsign_nonce_commit",
                                   batch=sl.stop - sl.start, cohort=ci):
-                    r_limbs, R_comp = eb.nonce_commitments(self._dev(r64[sl]))
+                    outs = [eb.nonce_commitments(p)
+                            for p in eb.to_dev(r64[sl], device=self.device)]
                     tracing.span_sync(self.device)
-                block = yield ("nonce_egress", lambda: R_comp.cpu().numpy().tobytes())
-                return r_limbs, block
+                block = yield ("nonce_egress",
+                               lambda: eb.gather_host([o[1] for o in outs]).tobytes())
+                return [o[0] for o in outs], block
 
             return job
 
@@ -181,17 +181,20 @@ class BatchedEDDSASigningParty(PartyBase):
             def job():
                 with tracing.span("phase:bsign_aggregate_partial",
                                   batch=sl.stop - sl.start, cohort=ci):
-                    R_sum, ok_R = eb.aggregate_nonce(self._dev(R_all[:, sl]))
-                    R_sum_h = R_sum.cpu().numpy()  # R enters the challenge hash
+                    dev = self.device
+                    agg = [eb.aggregate_nonce(p)
+                           for p in eb.to_dev(R_all[:, sl], axis=1, device=dev)]
+                    # R enters the challenge hash
+                    R_sum_h = eb.gather_host([R_sum for R_sum, _ in agg])
                     c64 = eb.challenge_hashes(R_sum_h, self.A_comp[sl],
-                                              self.messages[sl], self.device)
-                    parts = eb.partial_signature(
-                        self._r_limbs_c[ci], self._dev(c64), self._dev(self.lamx[sl])
-                    )
+                                              self.messages[sl], dev)
+                    parts = [eb.partial_signature(r, c, lx) for r, c, lx in zip(
+                        self._r_limbs_c[ci], eb.to_dev(c64, device=dev),
+                        eb.to_dev(self.lamx[sl], device=dev), strict=True)]
                     tracing.span_sync(self.device)
                 egress = yield ("partial_egress", lambda: (
-                    bn.limbs_to_bytes_le(parts, bn.P256, 32).cpu().numpy(),
-                    ok_R.cpu().numpy(),
+                    eb.gather_host([bn.limbs_to_bytes_le(p, bn.P256, 32) for p in parts]),
+                    eb.gather_host([ok_R for _, ok_R in agg]),
                 ))
                 return R_sum_h, c64, parts, egress
 
@@ -220,21 +223,24 @@ class BatchedEDDSASigningParty(PartyBase):
             def job():
                 with tracing.span("phase:bsign_combine_verify",
                                   batch=sl.stop - sl.start, cohort=ci):
-                    stacked = [self._parts_c[ci]]
+                    dev = self.device
+                    # per piece: this party's partials, then each peer's
+                    stacked = [[p] for p in self._parts_c[ci]]
                     for pid in self.party_ids:
                         if pid != self.self_id:
-                            stacked.append(bn.bytes_to_limbs_le(
-                                self._dev(peer_rows[pid][sl]), bn.P256, bn.P256.n_limbs
-                            ))
-                    sigs, _s = eb.combine_signatures(
-                        torch.stack(stacked), self._dev(self._R_sum[sl])
-                    )
-                    ok = eb.verify_signatures(
-                        sigs, self._dev(self.A_comp[sl]), self._dev(self._c64[sl])
-                    )
+                            for st, p in zip(stacked, eb.to_dev(peer_rows[pid][sl], device=dev),
+                                             strict=True):
+                                st.append(bn.bytes_to_limbs_le(p, bn.P256, bn.P256.n_limbs))
+                    sigs, ok = [], []
+                    for st, R, A, c in zip(stacked, eb.to_dev(self._R_sum[sl], device=dev),
+                                           eb.to_dev(self.A_comp[sl], device=dev),
+                                           eb.to_dev(self._c64[sl], device=dev), strict=True):
+                        sig, _s = eb.combine_signatures(torch.stack(st), R)
+                        sigs.append(sig)
+                        ok.append(eb.verify_signatures(sig, A, c))
                     tracing.span_sync(self.device)
                 return (yield ("sig_egress",
-                               lambda: (sigs.cpu().numpy(), ok.cpu().numpy())))
+                               lambda: (eb.gather_host(sigs), eb.gather_host(ok))))
 
             return job
 

@@ -18,7 +18,10 @@ traced run makes the same decisions as an untraced one.
 
 :func:`span_sync` and :class:`PhaseTimer` are the port's own: inside a
 span they synchronize the device so the span is honest device time,
-only while tracing (or the timer) is on.
+only while tracing (or the timer) is on. Under an armed session mesh
+(``engine/eddsa_batch.arm_session_sharding`` calls
+:func:`set_mesh_devices`) they synchronize every mesh device as well,
+or a span would time shard 0 alone.
 """
 from __future__ import annotations
 
@@ -311,11 +314,26 @@ def wire_context() -> Optional[Dict[str, str]]:
     return {"t": ids[0], "s": ids[1]}
 
 
+_MESH_DEVICES: Tuple[torch.device, ...] = ()
+
+
+def set_mesh_devices(devices) -> None:
+    """The armed session mesh's devices, which every sync covers too."""
+    global _MESH_DEVICES
+    _MESH_DEVICES = tuple(devices)
+
+
+def _sync(device: torch.device) -> None:
+    for d in dict.fromkeys((device,) + _MESH_DEVICES):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
 def span_sync(device: torch.device) -> None:
     """Finish the device work queued inside a span before it closes, so
     the span is honest device time — only while tracing is on."""
-    if _ENABLED and device.type == "cuda":
-        torch.cuda.synchronize(device)
+    if _ENABLED:
+        _sync(device)
 
 
 class PhaseTimer:
@@ -331,8 +349,7 @@ class PhaseTimer:
     def mark(self, name: str) -> None:
         if not self.on:
             return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        _sync(self.device)
         t = time.perf_counter()
         self.phases[name] = self.phases.get(name, 0.0) + (t - self.last)
         self.last = t

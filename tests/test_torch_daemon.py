@@ -5,10 +5,10 @@ networked deployment on the CPU:
   broker control plane: the node registers, its health beat carries the
   ``compile`` section and the flight recorder's ``trace.dropped_spans``,
   and it closes with no client thread left; ``run_node`` without a device
-  raises where there is no GPU, and the part not ported (the warm-start
-  pass) raises ``NotImplementedError`` before anything connects; a
-  ``chaos_fault_plan`` JSON (or a ``fault_plan`` object) wraps the
-  daemon's transport in ``FaultyTransport``;
+  raises where there is no GPU; with ``warm_enabled`` the warm-start pass
+  runs between ``warming`` and ``ready`` and writes its report, with no
+  thread left behind; a ``chaos_fault_plan`` JSON (or a ``fault_plan``
+  object) wraps the daemon's transport in ``FaultyTransport``;
 - ``publish_health`` / ``health_loop`` (as ``tests/test_daemon_health.py``
   checks the JAX package's) and ``load_peers``;
 - the CLIs' parsers, and ops-CLI files (peers, registries, identities,
@@ -204,13 +204,83 @@ def test_run_node_over_a_port_broker(tmp_path, monkeypatch):
         broker.close()
 
 
+def _boot_warm(tmp_path, monkeypatch, extra: str):
+    """run_node(block=False, device="cpu") over a port broker with the warm
+    config ``extra``: → (the warm report, the compile state seen at the
+    start and at the end of the warm pass, the state after boot). Closes
+    the node and the broker and checks that no non-daemon thread is left
+    behind."""
+    from mpcium_tpu_torch.node import daemon
+    from mpcium_tpu_torch.warm import manifest as wm
+    from mpcium_tpu_torch.warm import prewarm as pw
+
+    monkeypatch.setattr(daemon, "health_loop", lambda *a, **kw: None)
+    monkeypatch.setattr(pw, "_RAN", set())  # no bucket run by an earlier test counts
+    states = []
+    warm = pw.prewarm_for_daemon
+
+    def spy(cfg, name, device):
+        states.append(compile_watch.health_summary()["state"])
+        report = warm(cfg, name, device)
+        states.append(compile_watch.health_summary()["state"])
+        return report
+
+    monkeypatch.setattr(pw, "prewarm_for_daemon", spy)
+    def alive():  # the threads a leak check counts: daemon threads die with the process
+        return {t for t in threading.enumerate() if not t.daemon}
+
+    before = alive()
+    broker = BrokerServer(port=0)
+    ws = _workspace(tmp_path, broker.port, "warm_enabled: true\n" + extra)
+    started = None
+    try:
+        started = run_node("node0", config_path=str(ws / "config.yaml"), block=False,
+                           device="cpu")
+        ready = compile_watch.health_summary()["state"]
+        node_dir = ws / "db" / "node0"
+        report = json.loads((Path(pw.default_cache_dir(str(node_dir)))
+                             / wm.REPORT_BASENAME).read_text())
+    finally:
+        if started is not None:
+            node, consumer, signing, registry = started
+            signing.close()
+            consumer.close()
+            registry.resign()
+            node.transport.client.close()
+        trace.disarm()
+        compile_watch.reset()
+        broker.close()
+    assert wait_for(lambda: alive() <= before, 15.0), sorted(t.name for t in alive() - before)
+    return report, states, ready
+
+
 @pytest.mark.parametrize("extra,item", [("warm_enabled: true\n", "item 8")])
-def test_run_node_raises_for_the_parts_not_ported(tmp_path, extra, item):
-    ws = _workspace(tmp_path, 9, extra)
-    before = set(threading.enumerate())
-    with pytest.raises(NotImplementedError, match=item):
-        run_node("node0", config_path=str(ws / "config.yaml"), block=False, device="cpu")
-    assert set(threading.enumerate()) <= before
+def test_run_node_raises_for_the_parts_not_ported(tmp_path, monkeypatch, extra, item):
+    """The config that raised while the warm-start pass was not ported
+    (ROADMAP queue 1, ``item``) boots now: with no warm budget left every
+    entry of the manifest is skipped and the node still goes ready."""
+    report, states, ready = _boot_warm(tmp_path, monkeypatch, extra + "warm_budget_s: 0\n")
+    assert states == ["warming", "warming"] and ready == "ready", item
+    t = report["totals"]
+    assert t["entries"] == t["skipped"] > 0 and t["warmed"] == t["failed"] == 0
+    assert {r["reason"] for r in report["results"]} == {"budget exhausted"}
+
+
+def test_run_node_warm_boot(tmp_path, monkeypatch):
+    """``warm_enabled: true`` with ``warm_schemes: eddsa`` and
+    ``warm_max_b: 2``: the warm pass signs the buckets 1 and 2 of the
+    2-of-3 EdDSA engine on the node's device while the compile state
+    reads ``warming``, then the node reads ``ready``; the report has JAX's
+    keys, failed and skipped 0."""
+    report, states, ready = _boot_warm(
+        tmp_path, monkeypatch, "warm_schemes: eddsa\nwarm_max_b: 2\nmpc_threshold: 1\n")
+    assert states == ["warming", "warming"] and ready == "ready"
+    assert sorted(report) == ["budget_s", "comment", "key", "results", "totals"]
+    assert report["totals"] == {"entries": 2, "warmed": 2, "already": 0, "skipped": 0,
+                                "failed": 0, "hits": 0, "misses": 0, "unpredicted": 0}
+    assert [(r["engine"], r["shape"], r["status"], r["device"], r["cache"])
+            for r in report["results"]] == [("eddsa.sign", "B1|q2", "warmed", "cpu", "none"),
+                                            ("eddsa.sign", "B2|q2", "warmed", "cpu", "none")]
 
 
 @pytest.mark.parametrize("via", ["config", "argument"])

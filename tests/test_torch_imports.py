@@ -12,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "mpcium_tpu"}
-SCRIPTS = ["torch_chaos_drill.py", "torch_load_soak.py", "torch_chaos_soak_alone.py"]
+SCRIPTS = ["torch_chaos_drill.py", "torch_load_soak.py", "torch_chaos_soak_alone.py",
+           "torch_boot_alone.py"]
 SOURCES = sorted((ROOT / "mpcium_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
     ROOT / "scripts" / name for name in SCRIPTS]
 
@@ -64,6 +65,10 @@ def test_the_guard_sees_every_port_module_and_every_import_form(tmp_path):
     assert {f"mpcium_tpu_torch/{m}.py" for m in chaos} <= names
     assert all((ROOT / "mpcium_tpu" / f"{m}.py").is_file() for m in chaos)
     assert {f"scripts/{n}" for n in SCRIPTS} <= names
+    # the daemon's boot: the session axis over local devices and warm start
+    boot = ["engine/sharded", "warm/manifest", "warm/prewarm"]
+    assert {f"mpcium_tpu_torch/{m}.py" for m in boot} <= names
+    assert all((ROOT / "mpcium_tpu" / f"{m}.py").is_file() for m in boot)
     sample = tmp_path / "sample.py"
     sample.write_text("import jax.numpy as jnp\n"
                       "def f():\n"
