@@ -6,7 +6,8 @@ Phases, each printing one JSON line:
 1. env — the card (nvidia-smi name and power limit), torch/CUDA
    versions, and the time to build the mulmod kernel from csrc/.
 2. kernel_vs_plain — for each modulus width of the signing path
-   (2048-bit N, NTilde, p² and 4096-bit N² of the 2048-bit fixture):
+   (2048-bit N, NTilde, p² and 4096-bit N² of the 2048-bit fixture) and
+   of the warm pass (the 1024-bit fixture's N, n=160, one word a lane):
    B random reduced operands plus the edges 0, 1, m-1 and the unreduced
    operands R^occ - 1 and 2^(32k) that the JAX kernel still accepts; the
    kernel must equal the plain PyTorch version bit for bit, and sampled
@@ -24,14 +25,17 @@ Phases, each printing one JSON line:
    fixed-base comb table) at n=320 (2048-bit N) and n=608 (4096-bit
    N²), B rows, at the exponent widths of the signing path (256, 760
    and 1784 bits per row, the 1024-bit decryption exponent p-1 shared,
-   RAND_BITS and 1784 bits for the comb). Edge rows: bases 0, 1, m-1
+   RAND_BITS and 1784 bits for the comb), and at n=160 (the 1024-bit
+   fixture's N: row 256 bits, its 512-bit p-1 shared, comb RAND_BITS).
+   Edge rows: bases 0, 1, m-1
    and exponents 0, 1, all ones. The kernel must equal the plain
    version bit for bit, and sampled rows (the edges among them) python
    ``pow``; unreduced bases R^occ-1 and all-ones rows, beyond the plain
    version's domain, must equal python ``pow``. Kernel ms per launch:
    one CUDA event pair around each of seven launches of the C entry,
    median; the plain version's ms from one event pair around its call;
-   the steps (modular multiplies) each row needs, from the digits.
+   the steps (modular multiplies) each row needs and the squarings among
+   them, from the digits.
 4. slice — dealer keygen for B wallets (2-of-3), then two GG18
    Paillier-MtA batched signatures over B digests each with a seeded
    stream: the first builds the per-key fixed-base tables and is
@@ -282,11 +286,13 @@ their lines after phase 25's):
     engine at bucket 1 (the four schemes, q=2, both curves, both MtA
     backends; 12 entries): every entry warmed on ``cuda``, none failed
     or skipped, K0 launched by the two Paillier entries only (their
-    ``cache`` is K0's build verdict); ``warm_s`` per entry.
+    ``cache`` is K0's build verdict), and at n=160 by both entries in
+    every powmod mode; ``warm_s`` per entry.
 
 Every host verification runs the port's python-int verifiers over all
 signatures, spread over a pool of worker processes (one per host core).
-The kernels line's launch counts are phase 19's first party sign. Every
+The kernels line's launch counts are phase 19's first party sign, those
+of its n=160 entries phase 29's warm pass. Every
 phase line carries ``t_s``, the seconds since main() started when it was
 printed; a phase run by a child process adds ``t_start_s`` and
 ``t_end_s`` on the same clock, and each of its stages ``t_end_s``.
@@ -303,6 +309,7 @@ import argparse
 import json
 import os
 import random
+import re
 import shutil
 import statistics
 import subprocess
@@ -330,6 +337,9 @@ POWMOD_TIMINGS = 7  # event pairs (one launch each) per powmod median
 # to 2824 at n=320 and 256 (RAND_BITS) at n=608.
 POWMOD_PATH = {("row", 320): 256, ("row", 608): 760, ("shared", 320): 1024,
                ("comb", 320): 1784, ("comb", 608): 256}
+# The same for the warm pass (phase 29) on the 1024-bit fixture, n=160:
+# the kernels' one-word-a-lane instantiation.
+POWMOD_WARM = {("row", 160): 256, ("shared", 160): 512, ("comb", 160): 256}
 
 # H100 SXM peaks for the bound: HBM3 at 3.35 TB/s (NVIDIA data sheet), and
 # 32-bit integer multiply-add at 64 per clock per SM (CUDA C++ Programming
@@ -425,24 +435,61 @@ def smi() -> str:
 def mulmod_bound_ms(rows: int, n: int, modulus: int):
     """Least time for `rows` products a·b mod m: the bytes moved (a, b in,
     result out, int32 limbs) over HBM bandwidth, and the 32-bit word
-    products of a Barrett multiply (k² for a·b, ~k²/2 for the quotient
-    estimate, ~k²/2 for the low half of q·m; two int32 multiply-adds per
-    32x32→64 product) over the int32 rate."""
+    products a modular multiply needs (k² for a·b, k² for the reduction,
+    as in Barrett's k² + ~k²/2 + ~k²/2 or Montgomery's q·m; two int32
+    multiply-adds per 32x32→64 product) over the int32 rate."""
     k = -(-modulus.bit_length() // 32)
     t_bytes = 3 * rows * n * 4 / HBM_BYTES_PER_S
     t_ops = rows * 2 * k * k * 2 / INT32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def powmod_bound_ms(steps: int, moved_bytes: int, modulus: int):
+def powmod_bound_ms(squarings: int, steps: int, moved_bytes: int, modulus: int):
     """Least time for one powmod launch: the bytes it must move (rows and
     digits in, results out, each comb table entry the digits select read
-    once) over HBM bandwidth, and the Barrett word products of all its
-    steps (2k² per step, as in mulmod_bound_ms) over the int32 rate."""
+    once) over HBM bandwidth, and the word products of all its steps over
+    the int32 rate: k(k+1)/2 + k² for each of the squarings (the square's
+    triangle, then the reduction), 2k² for every other step (as in
+    mulmod_bound_ms). → (ms, what bounds it, ms with 2k² for every step:
+    the flat count of bounds that did not tell squarings apart)."""
     k = -(-modulus.bit_length() // 32)
     t_bytes = moved_bytes / HBM_BYTES_PER_S
-    t_ops = steps * 2 * k * k * 2 / INT32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    products = squarings * (k * (k + 1) // 2 + k * k) + (steps - squarings) * 2 * k * k
+    t_ops = products * 2 / INT32_OPS_PER_S
+    t_flat = steps * 2 * k * k * 2 / INT32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"),
+            max(t_bytes, t_flat) * 1e3)
+
+
+def powmod_squarings(L) -> int:
+    """The squarings among a launch's ``powmod_steps``, from its digits:
+    in modes row and shared x² of the window table and 4 per window
+    below the top non-zero digit, for every row with e != 0; none in the
+    comb."""
+    import numpy as np
+
+    if L.mode == "comb":
+        return 0
+    nz = L.digits.cpu().numpy().reshape(-1, L.nwin) != 0
+    top = L.nwin - 1 - np.argmax(nz[:, ::-1], -1)
+    per_row = np.where(nz.any(-1), 1 + 4 * top, 0)
+    return int(per_row.sum()) * (L.rows if L.mode == "shared" else 1)
+
+
+def ptxas_summary(log: str) -> list:
+    """One entry per kernel instantiation from nvcc's ``-Xptxas -v``
+    report: its name (``powmod_kernel<4>``: 4 words a lane), its
+    registers and shared memory, its stack and spills."""
+    out, fn, spill = [], "?", ""
+    for ln in log.splitlines():
+        hit = re.search(r"Compiling entry function '_Z\d+(\w+?)ILi(\d+)E", ln)
+        if hit:
+            fn, spill = f"{hit[1]}<{hit[2]}>", ""
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            out.append(f"{fn}: {ln.split(':', 1)[-1].strip()}; {spill}")
+    return out
 
 
 def time_ms(fn):
@@ -484,8 +531,8 @@ def kernel_graph_ms(K, a, b, c) -> float:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
         args = (
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), c.m_words.data_ptr(),
-            c.mu_words.data_ptr(), a.shape[0], c.n, c.k, side.cuda_stream,
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), c.mont_words.data_ptr(),
+            c.mprime, a.shape[0], c.n, c.k, side.cuda_stream,
         )
         for _ in range(REPS):
             if fn(*args) != 0:
@@ -508,10 +555,13 @@ def kernel_graph_ms(K, a, b, c) -> float:
 def kernel_vs_plain(B: int, seed: int, pre, K, mm, bn):
     import torch
 
+    from mpcium_tpu_torch.cluster import load_test_preparams
+
     p0 = pre["node0"]
     moduli = [
         ("N", p0.paillier.N), ("NTilde", p0.NTilde),
         ("p2", p0.paillier.p ** 2), ("N2", p0.paillier.N ** 2),
+        ("N1024", load_test_preparams(1024)["node0"].paillier.N),
     ]
     rnd = random.Random(seed)
     results = {}
@@ -560,6 +610,7 @@ def kernel_vs_plain(B: int, seed: int, pre, K, mm, bn):
             "max_abs_err": err, "kernel_ms": k_ms, "wrapper_ms": w_ms,
             "wrapper_host_ms_per_call": w_host,
             "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+            "bound_share": bound / k_ms,
         }
         emit(rec)
         # one row per kernel width: the widest-modulus measurement stands
@@ -593,18 +644,21 @@ def powmod_vs_plain(B: int, seed: int, pre, K, mm, bn):
     import numpy as np
     import torch
 
+    from mpcium_tpu_torch.cluster import load_test_preparams
     from mpcium_tpu_torch.ops.paillier_mxu import RAND_BITS
 
-    p0 = pre["node0"]
-    N, p = p0.paillier.N, p0.paillier.p
+    big = pre["node0"].paillier
+    small = load_test_preparams(1024)["node0"].paillier
     rnd = random.Random(seed + 7)
     nrng = np.random.default_rng(seed + 7)
     results = {}
-    for label, m in (("N", N), ("N2", N * N)):
+    path = [("row", 256), ("row", 760), ("row", 1784),
+            ("shared", (big.p - 1).bit_length()), ("comb", RAND_BITS), ("comb", 1784)]
+    warm = [("row", 256), ("shared", (small.p - 1).bit_length()), ("comb", RAND_BITS)]
+    for label, m, p, cases in (("N", big.N, big.p, path), ("N2", big.N ** 2, big.p, path),
+                               ("N1024", small.N, small.p, warm)):
         ctx = mm.MXUBarrett(m, device="cuda")
         c, n = ctx._kc, ctx.prof.n_limbs
-        cases = [("row", 256), ("row", 760), ("row", 1784),
-                 ("shared", (p - 1).bit_length()), ("comb", RAND_BITS), ("comb", 1784)]
         for mode, ebits in cases:
             xs = [0, 1, m - 1] + [rnd.randrange(m) for _ in range(B - 3)]
             eb = nrng.integers(0, 2, (B, ebits)).astype(np.int32)
@@ -672,7 +726,7 @@ def powmod_vs_plain(B: int, seed: int, pre, K, mm, bn):
                 if bn.batch_from_limbs(g, ctx.prof) != [pow(v, e, m) for v, e in zip(wide, ew)]:
                     raise AssertionError(f"powmod {mode} {label}: unreduced base != python pow")
             L = K.pack_powmod(*args, c, mode, table)
-            steps = K.powmod_steps(L)
+            steps, squarings = K.powmod_steps(L), powmod_squarings(L)
             moved = 4 * (L.digits.numel() + 2 * L.rows * n) if mode != "comb" else 4 * (
                 L.digits.numel() + L.rows * n)
             if mode == "comb":
@@ -685,16 +739,17 @@ def powmod_vs_plain(B: int, seed: int, pre, K, mm, bn):
                 K.powmod_cuda(*args, c, mode, table)
                 host.append((time.perf_counter() - t0) * 1e3)
                 torch.cuda.synchronize()
-            bound, by = powmod_bound_ms(int(steps.sum()), moved, m)
+            bound, by, flat = powmod_bound_ms(squarings, int(steps.sum()), moved, m)
             rec = {
                 "phase": "powmod_vs_plain", "mode": mode, "modulus": label,
                 "bits": m.bit_length(), "n_limbs": n, "rows": B, "exp_bits": ebits,
                 "shared_exp_edges_bits": extra, "equal": True, "max_abs_err": err,
                 "kernel_ms": k_ms, "steps_max": int(steps.max()),
-                "steps_total": int(steps.sum()),
+                "steps_total": int(steps.sum()), "squarings_total": squarings,
                 "kernel_ms_per_step": k_ms / max(int(steps.max()), 1),
                 "wrapper_host_ms_per_call": statistics.median(host),
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "bound_share": bound / k_ms, "bound_flat_ms": flat,
             }
             emit(rec)
             results[(mode, n, ebits)] = rec
@@ -1563,7 +1618,10 @@ def check_chaos(rec: dict) -> None:
     bad = {k: got.get(k) for k, v in CHAOS_EXPECTED.items() if got.get(k) != v}
     bad.update({r["drill"]: r["outcome"] for r in rec["drills"] if not r["ok"]})
     if bad:
-        raise AssertionError(f"chaos: drills missed their expected outcome: {bad}")
+        notes = {r["drill"]: r.get("notes", []) + ([r["error"]] if r["error"] else [])
+                 for r in rec["drills"] if r["drill"] in bad}
+        raise AssertionError(f"chaos: drills missed their expected outcome: {bad}; "
+                             f"their notes: {notes}")
     cheater = next(r for r in rec["drills"] if r["drill"] == "cheater")
     if cheater["ot_leg_device"] != [rec["device"]]:
         raise AssertionError(f"chaos: the cheater's OT leg ran on {cheater['ot_leg_device']}")
@@ -2727,7 +2785,8 @@ def warm_run(K, dev: str = "cuda") -> dict:
     bucket 1 (four schemes, q=2, both curves, both MtA backends, the
     1024-bit fixture): every entry must warm on the device, none fail or
     be skipped; the entries that launch K0 (the Paillier MtA) report its
-    build verdict, the rest ``none``. → the phase record."""
+    build verdict, the rest ``none``, and K0 must have launched both
+    entries at n=160 in every mode of POWMOD_WARM. → the phase record."""
     from mpcium_tpu_torch.warm import manifest as wm
     from mpcium_tpu_torch.warm import prewarm as pw
 
@@ -2735,12 +2794,13 @@ def warm_run(K, dev: str = "cuda") -> dict:
     K.reset_counters()
     t0 = time.perf_counter()
     rep = pw.prewarm(manifest, WARM_BUDGET_S, device=dev)
+    k0 = _k0_counts(K)
     rec = {"phase": "warm", "device": dev, "budget_s": WARM_BUDGET_S,
            "wall_s": time.perf_counter() - t0, "totals": rep["totals"], "key": rep["key"],
            "entries": [{k: r.get(k) for k in ("engine", "shape", "status", "warm_s", "cache",
                                                 "compile_s", "device", "reason")}
                        for r in rep["results"]],
-           "k0": _k0_json(_k0_counts(K))}
+           "k0": _k0_json(k0)}
     t = rep["totals"]
     k0_engines = {r["engine"] for r in rep["results"] if r.get("cache") not in (None, "none")}
     want_k0 = {"gg18.sign", "party.ecdsa"} if dev != "cpu" else set()
@@ -2749,7 +2809,10 @@ def warm_run(K, dev: str = "cuda") -> dict:
         ("every entry warmed", t["warmed"] != t["entries"] or t["entries"] != 12),
         ("nothing failed or skipped", t["failed"] or t["skipped"]),
         ("on the device", any(r["device"] != str(pw.resolve(dev)) for r in rep["results"])),
-        ("K0 on the Paillier entries", k0_engines != want_k0)) if bad]
+        ("K0 on the Paillier entries", k0_engines != want_k0),
+        ("K0 at n=160 in every mode", dev != "cpu" and not (
+            k0["mulmod_by_width"].get(160) and all(
+                k0["powmod_by_mode_width"].get(key) for key in POWMOD_WARM)))) if bad]
     return rec
 
 
@@ -2781,14 +2844,16 @@ def boot_finish(res: dict, extra: dict) -> None:
         raise AssertionError(f"warm: {warm['failed_checks']}: {warm['entries']}")
 
 
-def join_boot(future, t_submit: float) -> None:
-    """Wait for phases 29 and 28 (phase 25's worker), then finish them."""
+def join_boot(future, t_submit: float) -> dict:
+    """Wait for phases 29 and 28 (phase 25's worker), then finish them.
+    → phase 29's K0 counts."""
     t0 = time.perf_counter()
     res = future.result()
     wait_s = time.perf_counter() - t0
     _DEPLOY_POOL.shutdown()
     boot_finish(res, {"overlapped": True, "join_wait_s": wait_s,
                       "since_submit_s": time.perf_counter() - t_submit})
+    return res["warm"]["k0"]
 
 
 def main() -> int:
@@ -2823,8 +2888,7 @@ def main() -> int:
     t0 = time.perf_counter()
     K.build()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.split(":", 1)[-1].strip() for ln in K.build_log.splitlines()
-             if "registers" in ln]
+    ptxas = ptxas_summary(K.build_log)
     emit({
         "phase": "env", "nvidia_smi": card, "torch": torch.__version__,
         "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
@@ -2868,7 +2932,7 @@ def main() -> int:
     life = join_lifecycle(life_future, t_life)
     serving = join_serving(serving_future, t_serving)
     join_deployment(deploy_future, t_deploy, serving)
-    join_boot(boot_future, t_deploy)
+    warm_k0 = join_boot(boot_future, t_deploy)
     join_chaos_soak(chaos_future, t_life)
     emit({"phase": "wall", "script_s": time.perf_counter() - t_script,
           "note": "from the start of main() to here"})
@@ -2880,27 +2944,31 @@ def main() -> int:
             "route": "cuda",
             "source": "mpcium_tpu_torch/ops/csrc/mulmod.cu",
             "replaces": "mpcium_tpu/ops/pallas_mulmod.py:91",
-            "launches": life["mulmod_by_width"].get(n, 0),
+            "launches": (warm_k0["mulmod_launches_by_width"].get(str(n), 0) if n == 160
+                         else life["mulmod_by_width"].get(n, 0)),
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["kernel_ms"],
             "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
+            "bound_share": rec["bound_share"],
             "library_ms": None,
         })
-    for (mode, n), eb in POWMOD_PATH.items():
+    for (mode, n), eb in {**POWMOD_PATH, **POWMOD_WARM}.items():
         rec = pm[(mode, n, eb)]
         kernels.append({
             "name": f"powmod_{mode}_n{n}",
             "route": "cuda",
             "source": "mpcium_tpu_torch/ops/csrc/mulmod.cu",
             "replaces": "mpcium_tpu/ops/pallas_mulmod.py:91",
-            "launches": life["powmod_by_mode_width"][(mode, n)],
+            "launches": (warm_k0["powmod_launches_by_mode_width"].get(f"{mode}/{n}", 0)
+                         if (mode, n) in POWMOD_WARM else life["powmod_by_mode_width"][(mode, n)]),
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["kernel_ms"],
             "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
+            "bound_share": rec["bound_share"],
             "library_ms": None,
         })
     emit({"kernels": kernels})

@@ -16,8 +16,8 @@ kill-resume drill's warm pass signs its bucket there.
 
 Drill catalog (expected outcome in parentheses):
 
-- ``node-crash`` (recovered) — node2 SIGKILLs the instant it joins its
-  first signing session; the tx fails LOUDLY, the committee detects the
+- ``node-crash`` (recovered) — node2 SIGKILLs the instant its first
+  signing round leaves it; the tx fails LOUDLY, the committee detects the
   death via heartbeat staleness and signs with t+1 survivors, the node
   restarts, rejoins and signs again — then the wallet reshares cleanly.
 - ``drop-jitter`` (success) — 10 % loss on every acked protocol unicast
@@ -310,7 +310,19 @@ def restart_node(cluster: LocalCluster, node_id: str) -> None:
 
 def _drill_node_crash(seed: int, scale: float,
                       device: DeviceLike) -> Tuple[str, bool, List[str], dict, dict]:
-    plan = named_plan("node-crash", seed)
+    """node2 dies the instant its round-1 message of its first signing
+    session leaves. Not at its hello, as ``named_plan("node-crash")``
+    has it: a hello can reach a peer before that peer's session has
+    subscribed, and a node that dies then never re-sends it, so the
+    survivors would time out their hello barrier, retry once node2 is
+    stale and sign without it. A round leaves only after the hello
+    barrier, which each peer passes only with node2's hello, so both
+    survivors hold node2 in the session and stall on it."""
+    from .plan import crash_node
+
+    plan = FaultPlan(
+        seed, [crash_node("node2", at_round="eddsa/sign/1", topic="sign:*")]
+    )
     notes: List[str] = []
     cluster, root = _mk_cluster({"node2": plan}, device=device)
     try:
@@ -323,8 +335,8 @@ def _drill_node_crash(seed: int, scale: float,
         _eddsa_keygen(cluster, "w-crash")
         notes.append("keygen complete on all 3 nodes")
 
-        # tx-c0 triggers the crash: node2 dies the moment it announces
-        # itself in the signing session. The attempt must fail LOUDLY
+        # tx-c0 triggers the crash: node2 dies the moment its first
+        # signing round leaves it. The attempt must fail LOUDLY
         # (bounded ERROR event), never hang.
         try:
             ev0 = _sign(cluster, "w-crash", "tx-c0", timeout_s=60.0)

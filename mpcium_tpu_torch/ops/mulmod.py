@@ -12,7 +12,7 @@ around it. Two entries, both in ``csrc/mulmod.cu``:
   counterpart of ``_k_powmod`` (mode ``"row"``: per-row exponent),
   ``_k_powmod_digits`` (``"shared"``: one exponent for the batch) and
   ``_k_powmod_fb`` (``"comb"``: fixed-base comb table). The row stays in
-  32-bit words in shared memory for the whole loop.
+  registers for the whole loop.
 
 A CUDA tensor launches the kernel (or raises), a CPU tensor takes the
 plain version (:func:`mulmod_plain`, :func:`powmod_plain`). There is no
@@ -24,11 +24,16 @@ included); the kernels are exact for every normalized n-limb operand,
 so the two agree bit for bit wherever the JAX kernel is defined, and
 every result is the canonical residue whatever the window schedule.
 
-What bounds the kernels on an H100 is integer multiply throughput, not
-bytes (~7.5 MB in and out per 4096-bit product at B=1024 against ~85 M
-32-bit word products). They reduce in radix 2^32 (see the source note in
-``csrc/mulmod.cu``); warpgroup MMA, TMA and a parallel carry are later
-work.
+What bounds the kernels on an H100 is 32-bit integer multiply-add
+issue, not bytes (~7.5 MB in and out per 4096-bit product at B=1024
+against ~34 M word products), with ~8 rows an SM to hide latency. So a
+row lives on one warp, W = ceil(k/32) words a lane, and each step is a
+Montgomery product in radix 2^32 whose carries stay pending per lane
+and are resolved once by a warp-parallel carry lookahead (see the
+source note in ``csrc/mulmod.cu``). The kernels need
+an odd modulus, as every one the signing path gives them is: for an even
+one they raise ``ValueError`` and the plain version still runs. The
+reduction on tensor cores is later work.
 
 The library is compiled with ``nvcc`` into ``build/mpcium_tpu_torch/``
 at the first CUDA call and bound with ctypes (plain C interface, no
@@ -62,10 +67,11 @@ from ..perf import compile_watch
 
 LIMB_BITS = 7
 MAX_LIMBS = 608  # 4256 bits: the 4096-bit Paillier N² width
-_KMAX, _LMAX = 136, 160  # csrc/mulmod.cu
+_KMAX, _WMAX = 136, 5  # csrc/mulmod.cu: words of the widest row, words a lane
 
 POWMOD_MODES = ("row", "shared", "comb")  # csrc/mulmod.cu MODE_ROW, ...
 COMB_ROWS = 256  # entries per comb window: 8-bit digits
+COMB_MAX_WINDOWS = MAX_LIMBS * LIMB_BITS // 8  # the kernel's widest comb: a 4256-bit exponent
 
 launches = 0
 launches_by_width: Dict[int, int] = {}
@@ -99,9 +105,17 @@ def reset_counters() -> None:
 @dataclass(frozen=True)
 class MulmodConsts:
     """Per-modulus operands, built once by ``MXUBarrett``: the Toeplitz
-    constants of the plain (7-bit Barrett) version and, for the kernel,
-    the 32-bit word arrays of m (k words) and of mu = floor(2^(64·kw) / m),
-    where kw = ceil(7n/32) words hold a whole row."""
+    constants of the plain (7-bit Barrett) version and the kernel's
+    Montgomery constants. The kernel holds a row in s = 32·w words, w =
+    ceil(k/32) words a lane (k words of m), and works with R = 2^(32s);
+    a row of n limbs spans kw = ceil(7n/32) words. ``mont_words`` (3, s):
+    m, 2^(64kw) mod m (the product's entry) and 2^(32(kw+s)) mod m (the
+    exponentiation's entry, x·R); ``mprime`` = -m^-1 mod 2^32. An even
+    modulus has no Montgomery form: its words and ``mprime`` are zero and
+    the kernels raise. ``exit_words`` (COMB_MAX_WINDOWS + 1, s) holds
+    R^j mod m, j = 0, 1, ...: a comb of nz non-zero digits makes nz-1
+    Montgomery products of canonical entries, each leaving a factor
+    R^-1, and ends with one product by R^nz."""
 
     modulus: int
     occ: int
@@ -111,8 +125,14 @@ class MulmodConsts:
     comps: torch.Tensor
     k: int
     kw: int
-    m_words: torch.Tensor
-    mu_words: torch.Tensor
+    w: int
+    mprime: int
+    mont_words: torch.Tensor
+    exit_words: torch.Tensor
+
+    @property
+    def s(self) -> int:
+        return 32 * self.w
 
 
 def ints_to_words(vals, count: int) -> np.ndarray:
@@ -122,19 +142,24 @@ def ints_to_words(vals, count: int) -> np.ndarray:
     return np.frombuffer(buf, dtype="<i4").reshape(len(vals), count).copy()
 
 
-def _words(v: int, count: int, device) -> torch.Tensor:
-    return torch.as_tensor(ints_to_words([v], count)[0], device=device)
-
-
 def make_consts(modulus: int, occ: int, n: int, T_mu, T_m, comps, device) -> MulmodConsts:
     k = -(-modulus.bit_length() // 32)
     kw = -(-(LIMB_BITS * n) // 32)
-    mu = (1 << (64 * kw)) // modulus
-    if mu >> (32 * (2 * kw - k + 1)):
-        raise ValueError("mulmod kernel: the modulus must exceed 2^(32(k-1))")
+    w = -(-k // 32)
+    s = 32 * w
+    exits = [0] * (COMB_MAX_WINDOWS + 1)
+    if modulus & 1:
+        mprime = -pow(modulus, -1, 1 << 32) % (1 << 32)
+        vals = [modulus, (1 << (64 * kw)) % modulus, (1 << (32 * (kw + s))) % modulus]
+        R, v = (1 << (32 * s)) % modulus, 1 % modulus
+        for j in range(len(exits)):
+            exits[j], v = v, v * R % modulus
+    else:
+        mprime, vals = 0, [0, 0, 0]
     return MulmodConsts(
-        modulus, occ, n, T_mu, T_m, comps, k, kw,
-        _words(modulus, k, device), _words(mu, 2 * kw - k + 1, device),
+        modulus, occ, n, T_mu, T_m, comps, k, kw, w, mprime,
+        torch.as_tensor(ints_to_words(vals, s), device=device),
+        torch.as_tensor(ints_to_words(exits, s), device=device),
     )
 
 
@@ -177,10 +202,12 @@ def build() -> ctypes.CDLL:
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         fn = lib.mpcium_mulmod
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_uint32] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.mpcium_powmod
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_uint32] + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
         compile_watch.finish(token, cache)
@@ -200,15 +227,18 @@ def mulmod(a: torch.Tensor, b: torch.Tensor, c: MulmodConsts) -> torch.Tensor:
     return mulmod_cuda(a, b, c)
 
 
-def _check_width(c: MulmodConsts, entry: str) -> None:
-    if c.n > MAX_LIMBS or c.kw > _KMAX or 2 * c.kw - c.k + 1 > _LMAX:
+def _check_kernel(c: MulmodConsts, entry: str) -> None:
+    if not c.modulus & 1:
+        raise ValueError(f"{entry} kernel: the modulus is even; Montgomery needs an odd one")
+    if c.n > MAX_LIMBS or c.kw > _KMAX or c.w > _WMAX:
         raise ValueError(f"{entry} kernel: width {c.n} limbs exceeds {MAX_LIMBS}")
 
 
 def mulmod_cuda(a: torch.Tensor, b: torch.Tensor, c: MulmodConsts) -> torch.Tensor:
     global launches
     n = c.n
-    dev = c.m_words.device
+    dev = c.mont_words.device
+    _check_kernel(c, "mulmod")
     for t in (a, b):
         if t.device != dev or dev.type != "cuda":
             raise ValueError(f"mulmod kernel: tensor on {t.device}, consts on {dev}")
@@ -216,7 +246,6 @@ def mulmod_cuda(a: torch.Tensor, b: torch.Tensor, c: MulmodConsts) -> torch.Tens
             raise TypeError(f"mulmod kernel takes int32 limbs, got {t.dtype}")
         if t.shape[-1] != n:
             raise ValueError(f"mulmod kernel: width {t.shape[-1]} != {n}")
-    _check_width(c, "mulmod")
     shape = torch.broadcast_shapes(a.shape, b.shape)
     a2 = a.expand(shape).reshape(-1, n).contiguous()
     b2 = b.expand(shape).reshape(-1, n).contiguous()
@@ -229,7 +258,7 @@ def mulmod_cuda(a: torch.Tensor, b: torch.Tensor, c: MulmodConsts) -> torch.Tens
     with torch.cuda.device(dev):
         rc = lib.mpcium_mulmod(
             a2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            c.m_words.data_ptr(), c.mu_words.data_ptr(), rows, n, c.k,
+            c.mont_words.data_ptr(), c.mprime, rows, n, c.k,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
@@ -347,7 +376,8 @@ def powmod_steps(L: PowmodLaunch) -> np.ndarray:
     from the digits: a 15-step window table (x mod m, then x^2..x^15) and
     4 squarings plus one multiply per non-zero digit for every window
     below the top non-zero one; the comb one multiply per non-zero digit
-    past the first. e = 0 takes no step."""
+    past the first. e = 0 takes no step. Not counted: the one product
+    that leaves Montgomery form (by 1, or by R^nz for the comb)."""
     d = L.digits.cpu().numpy().reshape(-1, L.nwin)
     nz = d != 0
     if L.mode == "comb":
@@ -375,12 +405,14 @@ def powmod(x, digits: torch.Tensor, c: MulmodConsts, mode: str,
 def powmod_cuda(x, digits: torch.Tensor, c: MulmodConsts, mode: str,
                 table: Optional[CombTable] = None) -> torch.Tensor:
     n = c.n
-    dev = c.m_words.device
+    dev = c.mont_words.device
+    _check_kernel(c, "powmod")
     L = pack_powmod(x, digits, c, mode, table)
+    if mode == "comb" and L.nwin > COMB_MAX_WINDOWS:
+        raise ValueError(f"powmod kernel: {L.nwin} comb windows exceed {COMB_MAX_WINDOWS}")
     for t in (L.x, L.digits, L.table):
         if t is not None and (t.device != dev or dev.type != "cuda"):
             raise ValueError(f"powmod kernel: tensor on {t.device}, consts on {dev}")
-    _check_width(c, "powmod")
     out = torch.empty((L.rows, n), dtype=torch.int32, device=dev)
     if L.rows == 0:
         return out.reshape(L.shape + (n,))
@@ -398,11 +430,12 @@ def launch_powmod(L: PowmodLaunch, c: MulmodConsts, out: torch.Tensor) -> int:
     ``out`` (rows, n), on ``out``'s device and its current stream; counts
     nothing, checks nothing, returns the CUDA error code."""
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rpow = c.exit_words if L.mode == "comb" else None
     lib = build()
     with torch.cuda.device(out.device):
         return lib.mpcium_powmod(
-            ptr(L.x), L.digits.data_ptr(), ptr(L.table), out.data_ptr(),
-            c.m_words.data_ptr(), c.mu_words.data_ptr(), L.rows, c.n, c.k, L.nwin,
+            ptr(L.x), L.digits.data_ptr(), ptr(L.table), ptr(rpow), out.data_ptr(),
+            c.mont_words.data_ptr(), c.mprime, L.rows, c.n, c.k, L.nwin,
             L.stride, POWMOD_MODES.index(L.mode),
             torch.cuda.current_stream(out.device).cuda_stream,
         )

@@ -1,8 +1,8 @@
 """The port stands alone: no module of ``mpcium_tpu_torch/``, not
-``chip_smoke.py`` and not the port's soak and chaos scripts import JAX or
-the JAX package (``mpcium_tpu``), at the top of a file or inside a
-function. The card's machine has no JAX,
-and the port keeps its own copy of what it needs."""
+``chip_smoke.py`` and not the port's scripts that run on the card
+import JAX or the JAX package (``mpcium_tpu``), at the top of a file or
+inside a function. The card's machine has no JAX, and the port keeps
+its own copy of what it needs."""
 from __future__ import annotations
 
 import ast
@@ -13,7 +13,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "mpcium_tpu"}
 SCRIPTS = ["torch_chaos_drill.py", "torch_load_soak.py", "torch_chaos_soak_alone.py",
-           "torch_boot_alone.py"]
+           "torch_boot_alone.py", "torch_sign_ab.py", "torch_k0_ab.py"]
 SOURCES = sorted((ROOT / "mpcium_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
     ROOT / "scripts" / name for name in SCRIPTS]
 

@@ -82,17 +82,69 @@ def test_cpu_tensors_take_the_plain_version_and_the_kernel_refuses_them():
     assert K.launches == 0
 
 
-def test_kernel_consts_are_radix_2_32_barrett_words():
-    m, _, _ = _operands(2048, seed=11)
+def _words_value(row) -> int:
+    return sum((int(w) & 0xFFFFFFFF) << (32 * i) for i, w in enumerate(row))
+
+
+@pytest.mark.parametrize("bits,w", [(1024, 1), (2048, 2), (2040, 2), (4096, 4)])
+def test_kernel_consts_are_radix_2_32_montgomery_words(bits, w):
+    """The kernel's per-modulus constants: m over s = 32·w words (w words
+    a lane), m' = -m^-1 mod 2^32, and the two entry constants that make
+    every bit of a kw-word row count."""
+    m, _, _ = _operands(bits, seed=11)
     ctx = mm.MXUBarrett(m, device="cpu")
     c = ctx._kc
-    words = lambda t: sum(  # noqa: E731
-        (int(w) & 0xFFFFFFFF) << (32 * i) for i, w in enumerate(t.tolist())
-    )
-    assert (c.k, c.kw) == (64, 70) and words(c.m_words) == m
-    assert words(c.mu_words) == (1 << (64 * c.kw)) // m
-    # the top k+1 words of mu are the narrow Barrett constant
-    assert words(c.mu_words) >> (64 * (c.kw - c.k)) == (1 << (64 * c.k)) // m
+    s = 32 * w
+    assert (c.k, c.w, c.s) == (-(-bits // 32), w, s)
+    assert c.kw == -(-(7 * ctx.prof.n_limbs) // 32) >= c.k
+    assert tuple(c.mont_words.shape) == (3, s) and c.mont_words.dtype == torch.int32
+    m_w, c_mul, c_pow = (_words_value(r) for r in c.mont_words.tolist())
+    assert m_w == m
+    assert (m * c.mprime + 1) % (1 << 32) == 0 and 0 <= c.mprime < 1 << 32
+    assert c_mul == (1 << (64 * c.kw)) % m
+    assert c_pow == (1 << (32 * (c.kw + s))) % m
+    # the two entries: mont_kw(a, c_mul) = a·2^(32kw), mont_kw(x, c_pow) = x·R
+    r_kw = pow(1 << (32 * c.kw), -1, m)
+    assert c_mul * r_kw % m == (1 << (32 * c.kw)) % m
+    assert c_pow * r_kw % m == (1 << (32 * s)) % m
+
+
+def test_even_modulus_raises_on_the_kernel_path_and_runs_plain():
+    m = (1 << 255) + 2 * random.Random(4).getrandbits(200)
+    ctx = mm.MXUBarrett(m, device="cpu")
+    c = ctx._kc
+    assert c.mprime == 0 and not c.mont_words.any()
+    a = _limbs([m - 1, 3, 0, 12345], ctx.prof)
+    b = _limbs([m - 1, m - 2, 7, 99], ctx.prof)
+    K.reset_counters()
+    with pytest.raises(ValueError, match="mulmod kernel: the modulus is even"):
+        K.mulmod_cuda(a, b, c)
+    d = torch.tensor([[1, 2]] * 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="powmod kernel: the modulus is even"):
+        K.powmod_cuda(a, d, c, "row")
+    assert K.launches == 0 and K.powmod_launches_by_mode_width == {}
+    assert bn.batch_from_limbs(K.mulmod(a, b, c), ctx.prof) == [
+        x * y % m for x, y in ((m - 1, m - 1), (3, m - 2), (0, 7), (12345, 99))
+    ]
+    got = K.powmod(a, d, c, "row")
+    assert bn.batch_from_limbs(got, ctx.prof) == [pow(x, 0x21, m) for x in (m - 1, 3, 0, 12345)]
+
+
+def test_comb_exit_table_bounds_the_kernel_comb():
+    """The consts hold R^j mod m up to the widest comb the kernel takes;
+    one window more raises on the kernel path before anything launches."""
+    m = (1 << 255) + 2 * random.Random(5).getrandbits(200) + 1
+    c = mm.MXUBarrett(m, device="cpu")._kc
+    R = 1 << (32 * c.s)
+    ex = [_words_value(r) for r in c.exit_words[[0, 1, -1]].tolist()]
+    assert ex == [1, R % m, pow(R, K.COMB_MAX_WINDOWS, m)]
+    for nw, msg in ((K.COMB_MAX_WINDOWS + 1, "comb windows exceed"),
+                    (K.COMB_MAX_WINDOWS, "tensor on cpu")):
+        table = K.CombTable(torch.zeros((nw, K.COMB_ROWS, c.n), dtype=torch.int32),
+                            torch.zeros((nw, K.COMB_ROWS, c.k), dtype=torch.int32))
+        d = torch.zeros((2, nw), dtype=torch.int32)
+        with pytest.raises(ValueError, match=msg):
+            K.powmod_cuda(None, d, c, "comb", table)
 
 
 def _pallas_case(bits: int):
