@@ -157,7 +157,8 @@ the wallets they make sign in the batched parties on the card):
     a ``ResharingParty`` rotation from node0 + node1 to node0–node2 (t=1,
     epoch 1) and a sign by node1 + node2; both signatures verified on the
     host against the keygen's key. The line gives each protocol's wall
-    per wallet and the wait at the join.
+    per wallet and the wait at the join. Cut in depth from 4 wallets to 2
+    in PR 13: the host's cores are the script's bottleneck.
 23. session_batch_sign — the epoch-1 shares of phase 22 signed as one
     batch by node1 + node2 with ``BatchedECDSASigningParty`` (full
     ``Domains()``) on the card: the shares' quorum material digests must
@@ -288,6 +289,43 @@ their lines after phase 25's):
     or skipped, K0 launched by the two Paillier entries only (their
     ``cache`` is K0's build verdict), and at n=160 by both entries in
     every powmod mode; ``warm_s`` per entry.
+
+The measurement tooling (the engines' phase spans, ``perf/profile.py``,
+``perf/microbench.py`` and ``perf/statcheck.py``); phases 30 and 31 in
+the main process after phase 23, phase 32 on the goldens' process
+(below):
+
+30. profile — a third warm Paillier sign of phase 4's signer (B wallets,
+    cohorts 2, fresh digests) under tracing and
+    ``perf.profile.device_profile`` (``torch.profiler``, CUDA activity):
+    ``tracing.phase_share`` and ``device_idle_fraction`` of its spans, the
+    fold's ``<phase>_device_op_s``, the device events captured, K0's
+    kernel events among them and their seconds, the device seconds left
+    outside every phase window, the busy share (folded device seconds
+    over the traced window), the capture's size, the seconds to write and
+    to fold it, the ten kernels with the most device time, and the
+    profiled wall over phase 4's measured wall. It fails unless every
+    signature verifies on the host, the fold is non-empty, K0's kernel
+    events equal K0's launch counters for the sign, no plain version ran,
+    and the spans' phases are the measured sign's ``phases_s`` keys.
+31. ot_phase_share — one traced OT-MtA sign of phase 8's signer (B,
+    cohorts 2; spans only): ``phase_share`` with the OT phase's
+    host/device attributes, and ``device_idle_fraction``; every signature
+    verified on the host. In the main process after phase 30.
+32. microbench — ``perf.microbench.run_all(samples=30, device="cuda")``:
+    each row's median, p90 and spread (max over min), and
+    ``statcheck.gate`` on each row's samples, which must pass against
+    themselves and fail against a copy scaled by 1.5. That verdict is
+    certain only for samples spread less than 1.5×: a row whose scaled
+    copy passes is measured once more (the JAX perfcheck's one retry),
+    and the second measurement must be flagged. It runs last on the
+    process of the golden phases (below), off the main process's path.
+
+Phases 5, 6, 7, 9, 15 and 16 (the JAX goldens on the card), then phase
+32, run in that order on a spawned process of their own, started after
+phase 3 beside phases 19, 24 and 25; each prints its own line, and the
+main process joins them after phase 31 with a ``goldens`` line
+(``t_start_s``, ``t_end_s``).
 
 Every host verification runs the port's python-int verifiers over all
 signatures, spread over a pool of worker processes (one per host core).
@@ -820,7 +858,7 @@ def run_slice(B: int, seed: int, pre, K):
     for key in POWMOD_PATH:
         if by_mode.get(key, 0) == 0:
             raise AssertionError(f"no powmod launch of {key} during the sign")
-    return by_width, by_mode, shares
+    return by_width, by_mode, shares, signer, {"sign_s": sign_s, "phases_s": phases}
 
 
 def check_golden(path: Path = GOLDEN, phase: str = "golden") -> None:
@@ -933,10 +971,10 @@ def ot_tamper(B: int = 4) -> None:
         raise AssertionError(f"tamper cases misblamed: {bad}")
 
 
-def run_ot_slice(B: int, seed: int, shares, K) -> None:
+def run_ot_slice(B: int, seed: int, shares, K):
     """The OT backend at B sessions on the slice's wallets: setup (base
     OTs), a first sign, then the measured warm sign with K0's counters
-    zeroed just before it."""
+    zeroed just before it. Returns the signer (phase 31 signs with it)."""
     import numpy as np
     import torch
 
@@ -991,6 +1029,7 @@ def run_ot_slice(B: int, seed: int, shares, K) -> None:
         raise AssertionError(f"OT legs blamed a party on an honest run: {blame}")
     if k0_launches != (0, 0):
         raise AssertionError(f"the OT sign reached K0 or its plain versions: {k0_launches}")
+    return signer
 
 
 def _record_diff(got: dict, want: dict) -> list:
@@ -1800,7 +1839,10 @@ def run_eddsa_dkg(B: int, seed: int, K, dev: str = "cuda") -> None:
 # and the batched sign on the card of the wallets they make
 # ---------------------------------------------------------------------------
 
-SESSION_W = 4  # secp256k1 wallets made and rotated per session, one pool task each
+# secp256k1 wallets made and rotated per session, one pool task each: 2,
+# not 4 as through PR 12 (each takes some 200 s of host python, and the
+# host is shared with every other lane)
+SESSION_W = 2
 SESSION_ED_W = 64  # ed25519 wallets made per session
 SESSION_ED_ROTATE = 8  # of them rotated per session
 
@@ -2855,6 +2897,220 @@ def join_boot(future, t_submit: float) -> dict:
                       "since_submit_s": time.perf_counter() - t_submit})
     return res["warm"]["k0"]
 
+# ---------------------------------------------------------------------------
+# phases 5-7, 9, 15 and 16 (the JAX goldens replayed on the card) and 32
+# (the micro-benches), in a process of their own beside the main
+# process's phases
+# ---------------------------------------------------------------------------
+
+_GOLDEN_POOL = None
+
+
+def _goldens_task() -> dict:
+    """The golden phases and the micro-benches need nothing of the main
+    process; each prints its own line as it ends."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = since_start()
+    check_golden()
+    ot_leg_golden()
+    ot_tamper()
+    check_golden(OT_GOLDEN, "ot_golden")
+    ecdsa_party_golden()
+    dkg_golden()
+    run_microbench()
+    return {"t_start_s": t_start, "t_end_s": since_start()}
+
+
+def start_goldens():
+    global _GOLDEN_POOL
+    _GOLDEN_POOL = spawned_pool()
+    return _GOLDEN_POOL.submit(_goldens_task), time.perf_counter()
+
+
+def join_goldens(future, t_submit: float) -> None:
+    t0 = time.perf_counter()
+    res = future.result()
+    _GOLDEN_POOL.shutdown()
+    emit({"phase": "goldens", "phases": [5, 6, 7, 9, 15, 16, 32], **res,
+          "join_wait_s": time.perf_counter() - t0,
+          "since_submit_s": time.perf_counter() - t_submit})
+
+
+# ---------------------------------------------------------------------------
+# phases 30-32: the measurement tooling — the engines' phase spans, the
+# card's timeline folded into them, the idle share, and the micro-benches
+# with their statistical gate
+# ---------------------------------------------------------------------------
+
+PROFILE_DIR = ROOT / ".mpcium_profile" / "chip_smoke"
+K0_KERNELS = ("mulmod_kernel", "powmod_kernel")  # the kernel names in csrc/mulmod.cu
+
+
+def _traced_sign(signer, digests, dev: str):
+    """One sign under tracing → (spans, outputs, wall s); the device is
+    synchronized before the clock stops."""
+    from mpcium_tpu_torch.utils import tracing
+
+    spans: list = []
+    tracing.enable(sink=spans.append)
+    try:
+        t0 = time.perf_counter()
+        out = signer.sign(digests, cohorts=COHORTS)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        tracing.disable()
+    return spans, out, wall
+
+
+def _window_s(spans) -> float:
+    edges = [(s["t0_ns"], s["t1_ns"]) for s in spans
+             if s["name"].startswith(("phase:", "host:"))]
+    return (max(t1 for _, t1 in edges) - min(t0 for t0, _ in edges)) / 1e9
+
+
+def run_profile(signer, shares, B: int, seed: int, K, measured: dict, dev: str = "cuda") -> None:
+    """Phase 30: a third warm Paillier sign on phase 4's signer, fresh
+    digests, under tracing and ``perf.profile.device_profile``: the phase
+    share and the idle share from the spans, and the card's own time per
+    phase from the capture. On the card K0's kernel events in the capture
+    must equal K0's launch counters for the sign, with no plain call."""
+    import numpy as np
+
+    from mpcium_tpu_torch.perf import profile
+    from mpcium_tpu_torch.utils import tracing
+
+    digests = np.random.default_rng(seed + 30).integers(0, 256, (B, 32), dtype=np.uint8)
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    env_before = os.environ.get(profile.PROFILE_ENV)
+    os.environ[profile.PROFILE_ENV] = "1"
+    K.reset_counters()
+    try:
+        with profile.device_profile(str(PROFILE_DIR), device=dev) as on:
+            spans, out, wall = _traced_sign(signer, digests, dev)
+            t_end = time.perf_counter()
+        export_s = time.perf_counter() - t_end
+    finally:
+        if env_before is None:
+            os.environ.pop(profile.PROFILE_ENV)
+        else:
+            os.environ[profile.PROFILE_ENV] = env_before
+    k0_launches = K.launches + sum(K.powmod_launches_by_mode_width.values())
+    plain_calls = K.plain_calls
+    t0 = time.perf_counter()
+    ops = profile.device_ops(str(PROFILE_DIR))
+    fold = profile.fold_ops(spans, ops)
+    fold_s = time.perf_counter() - t0
+    by_name: dict = {}
+    for e in ops:
+        n, t = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (n + 1, t + e["dur"] / 1e6)
+    k0_events = sum(n for name, (n, _t) in by_name.items()
+                    if any(k in name for k in K0_KERNELS))
+    k0_device_s = sum(t for name, (_n, t) in by_name.items()
+                      if any(k in name for k in K0_KERNELS))
+    device_s = sum(e["dur"] for e in ops) / 1e6
+    folded_s = sum(fold.values())
+    share = tracing.phase_share(spans)
+    window = _window_s(spans)
+    verified = verify_ecdsa([x.public_key for x in shares[0]], digests, out["r"], out["s"])
+    phase_keys = sorted({s["name"][len("phase:"):] for s in spans if s["name"].startswith("phase:")})
+    emit({
+        "phase": "profile", "B": B, "cohorts": COHORTS, "capturing": on,
+        "profiled_sign_s": wall, "measured_sign_s": measured["sign_s"],
+        "profiled_over_measured": wall / measured["sign_s"],
+        "phase_share_s": share, "device_idle_fraction": tracing.device_idle_fraction(spans),
+        "fold_device_op_s": fold, "traced_window_s": window,
+        "device_events": len(ops), "device_s": device_s, "folded_device_s": folded_s,
+        "unattributed_device_s": device_s - folded_s,
+        "busy_share": folded_s / window if window else None,
+        "k0_kernel_events": k0_events, "k0_launches": k0_launches, "k0_device_s": k0_device_s,
+        "plain_calls": plain_calls,
+        "trace_bytes": sum(f.stat().st_size for f in PROFILE_DIR.rglob("*.trace.json.gz")),
+        "export_s": export_s,
+        "export_steps_s": [json.loads(f.read_text()) for f in PROFILE_DIR.glob("*.export.json")],
+        "fold_s": fold_s,
+        "top_kernels": [{"name": n[:70], "events": c, "device_s": t} for n, (c, t) in
+                        sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]],
+        "ok_all": bool(out["ok"].all()), "verified": verified,
+    })
+    if not out["ok"].all() or verified != B:
+        raise AssertionError(f"profiled sign: ok={int(out['ok'].sum())}/{B} verified={verified}/{B}")
+    if phase_keys != sorted(measured["phases_s"]):
+        raise AssertionError(f"phase_share keys {phase_keys} != phases_s {sorted(measured['phases_s'])}")
+    if dev == "cuda":
+        if not fold:
+            raise AssertionError("the device fold is empty")
+        if plain_calls:
+            raise AssertionError(f"a plain version ran {plain_calls}x during the profiled sign")
+        if k0_events != k0_launches:
+            raise AssertionError(f"K0 kernel events in the capture {k0_events} != "
+                                 f"K0 launches {k0_launches}")
+
+
+def run_ot_profile(signer, shares, B: int, seed: int, dev: str = "cuda") -> None:
+    """Phase 31: one traced OT-MtA sign on phase 8's signer (spans only):
+    the phase share with the OT host/device attrs and the idle share."""
+    import numpy as np
+
+    from mpcium_tpu_torch.utils import tracing
+
+    digests = np.random.default_rng(seed + 31).integers(0, 256, (B, 32), dtype=np.uint8)
+    spans, out, wall = _traced_sign(signer, digests, dev)
+    verified = verify_ecdsa([x.public_key for x in shares[0]], digests, out["r"], out["s"])
+    emit({
+        "phase": "ot_phase_share", "B": B, "cohorts": COHORTS, "traced_sign_s": wall,
+        "phase_share_s": tracing.phase_share(spans),
+        "device_idle_fraction": tracing.device_idle_fraction(spans),
+        "traced_window_s": _window_s(spans),
+        "ok_all": bool(out["ok"].all()), "verified": verified,
+    })
+    if not out["ok"].all() or verified != B:
+        raise AssertionError(f"traced OT sign: ok={int(out['ok'].sum())}/{B} verified={verified}/{B}")
+
+
+def _gate_row(name: str, xs: list) -> dict:
+    from mpcium_tpu_torch.perf import statcheck
+
+    same = statcheck.gate({name: xs}, {name: xs})
+    slow = statcheck.gate({name: xs}, {name: [x * 1.5 for x in xs]})
+    return {"median_ms": statcheck.median(xs) * 1e3,
+            "p90_ms": sorted(xs)[int(0.9 * (len(xs) - 1))] * 1e3,
+            "max_over_min": max(xs) / min(xs),
+            "self_ok": same.ok, "scaled_flagged": not slow.ok,
+            "scaled": slow.verdicts[0].render()}
+
+
+def run_microbench(samples: int = 30, dev: str = "cuda") -> None:
+    """Phase 32: every micro-bench row on the card, each row's median and
+    p90, and the statistical gate on each row's samples: against
+    themselves they pass, against a copy scaled by 1.5 they fail. The
+    second verdict is certain only while a row's samples spread less
+    than 1.5× (max over min); a row whose scaled copy is not flagged is
+    measured once more, as the JAX package's perfcheck retries a
+    verdict, and both attempts are printed."""
+    from mpcium_tpu_torch.perf import microbench
+
+    t0 = time.perf_counter()
+    rows = microbench.run_all(samples=samples, device=dev)
+    bench_s = time.perf_counter() - t0
+    out, bad = {}, []
+    for name, xs in rows.items():
+        row = out[name] = _gate_row(name, xs)
+        if row["self_ok"] and not row["scaled_flagged"]:
+            fn = microbench.ALL_BENCHES[name]
+            again = fn(samples, device=dev) if name in microbench._DEVICE_ROWS else fn(samples)
+            row["retry"] = _gate_row(name, again)
+        final = row.get("retry", row)
+        if not final["self_ok"] or not final["scaled_flagged"]:
+            bad.append(name)
+    emit({"phase": "microbench", "samples": samples, "device": dev, "bench_s": bench_s,
+          "rows": out})
+    if bad:
+        raise AssertionError(f"the gate misjudged the rows {bad}")
+
 
 def main() -> int:
     t_script = time.perf_counter()
@@ -2902,7 +3158,8 @@ def main() -> int:
     life_future, chaos_future, t_life = start_lifecycle(LIFECYCLE_B, args.seed)
     serving_future, t_serving = start_serving(SERVING_W, args.seed)
     deploy_future, boot_future, t_deploy = start_deployment(DEPLOY_W, args.seed)
-    by_width, by_mode, shares = run_slice(args.batch, args.seed, pre, K)
+    golden_future, t_golden = start_goldens()
+    by_width, by_mode, shares, signer, measured = run_slice(args.batch, args.seed, pre, K)
     emit({
         "phase": "wrapper_host", "note": "launches in the warm sign x host ms "
         "per wrapper call at B=1024 (kernel_vs_plain, powmod_vs_plain)",
@@ -2911,24 +3168,21 @@ def main() -> int:
         "powmod_s": sum(by_mode[key] * pm[key + (eb,)]["wrapper_host_ms_per_call"]
                         for key, eb in POWMOD_PATH.items()) / 1e3,
     })
-    check_golden()
-    ot_leg_golden()
-    ot_tamper()
-    run_ot_slice(args.batch, args.seed, shares, K)
-    check_golden(OT_GOLDEN, "ot_golden")
+    ot_signer = run_ot_slice(args.batch, args.seed, shares, K)
     sha512_vs_hashlib(args.eddsa_batch, args.seed)
     ed25519_edges()
     eddsa_golden()
     ed_shares = run_eddsa_slice(args.eddsa_batch, args.seed, K)
     run_eddsa_party(min(EDDSA_PARTY_B, args.eddsa_batch), args.seed, ed_shares)
-    ecdsa_party_golden()
-    dkg_golden()
     dkg_shares = run_dkg_engine(DKG_B, args.seed, K)
     run_reshare_engine(RESHARE_B, args.seed, dkg_shares, K)
     run_eddsa_dkg(LIFECYCLE_B, args.seed, K)
     run_session_eddsa(args.seed)
     session = join_session_ecdsa(session_futures, t_submit)
     run_session_batch_sign(session, args.seed, K)
+    run_profile(signer, shares, args.batch, args.seed, K, measured)
+    run_ot_profile(ot_signer, shares, args.batch, args.seed)
+    join_goldens(golden_future, t_golden)
     life = join_lifecycle(life_future, t_life)
     serving = join_serving(serving_future, t_serving)
     join_deployment(deploy_future, t_deploy, serving)
@@ -2984,7 +3238,8 @@ if __name__ == "__main__":
     try:
         rc = main()
     finally:
-        for pool in (_POOL, _SESSION_POOL, _LIFECYCLE_POOL, _SERVING_POOL, _DEPLOY_POOL):
+        for pool in (_POOL, _SESSION_POOL, _LIFECYCLE_POOL, _SERVING_POOL, _DEPLOY_POOL,
+                     _GOLDEN_POOL):
             if pool is not None:
                 pool.shutdown(cancel_futures=True)
     sys.exit(rc)

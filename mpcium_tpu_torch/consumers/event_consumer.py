@@ -149,12 +149,19 @@ class EventConsumer:
                 float(self.scheduler.settled_size())
             )
         compile_watch.export_gauges(self.metrics)
+        # measurement debt next to warming state: owed/claimed/stale
+        # counts from the claims ledger (cached file reads; the helper
+        # never raises — health must not die on a corrupt corpus)
+        from ..perf import claims as claims_ledger
+
+        claim_counts = claims_ledger.export_gauges(self.metrics)
         out = {
             "node": self.node.node_id,
             "live_sessions": live_sessions,
             "dedup_claims": claims,
             "batch_signing": self.scheduler is not None,
             "compile": compile_watch.health_summary(),
+            "claims": claim_counts,
             "metrics": self.metrics.snapshot(),
         }
         if self.scheduler is not None:

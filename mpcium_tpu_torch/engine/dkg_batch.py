@@ -35,7 +35,7 @@ from ..core.bignum import P256
 from ..device import resolve
 from ..ops.sha256 import sha256 as dev_sha256
 from ..protocol.base import KeygenShare, party_xs
-from ..utils.tracing import PhaseTimer
+from ..utils import tracing
 from . import pipeline as pl
 
 SCALAR_BITS = 256
@@ -144,47 +144,63 @@ def _verify_phase_points(subshares: torch.Tensor, pts, key_type: str, xs) -> tor
     return torch.all(ok.reshape(-1, ok.shape[-1]), dim=0)
 
 
-def _vss_core(key_type: str, xs_tuple: Tuple[int, ...], coeffs: torch.Tensor,
-              blinds: torch.Tensor, plan: pl.CohortPlan, phase_times: Optional[dict]):
+def _vss_core(engine: str, key_type: str, xs_tuple: Tuple[int, ...],
+              coeffs: torch.Tensor, blinds: torch.Tensor, plan: pl.CohortPlan,
+              pt: tracing.PhaseTimer):
     """The shared DKG/reshare round core — commit → subshare → VSS
     verify → aggregate — run per counter-phase cohort.
 
     All secret material (``coeffs``, ``blinds``) was drawn by the caller
     for the full batch before the split; each cohort only slices it
     along the wallet axis, so shares and commitments are bit-identical
-    for every cohort count. Returns ``(ok, agg, comp)`` in batch order:
-    ``ok`` a host (B,) verdict row, ``agg`` the aggregated sub-shares
-    (n_recv, B, 22) on the host, ``comp`` the aggregate commitment bytes
-    ``[t+1][B]`` (``comp[0]`` is the public-key row)."""
+    for every cohort count. ``pt`` is the caller's phase timer: the
+    serial path marks it, each cohort of several marks its own (tid
+    ``<pt.tid>:c<i>``), their phase dicts added into the caller's.
+    Returns ``(ok, agg, comp)`` in batch order: ``ok`` a host (B,)
+    verdict row, ``agg`` the aggregated sub-shares (n_recv, B, 22) on
+    the host, ``comp`` the aggregate commitment bytes ``[t+1][B]``
+    (``comp[0]`` is the public-key row)."""
     mod, _ = _curve(key_type)
     ring = mod.scalar_ring(coeffs.device)
 
-    def job(sl: slice):
-        def run():
-            pt = PhaseTimer(coeffs.device, phase_times)
-            c_coeffs = coeffs[:, :, sl]
-            pts, _commits = _commit_phase(c_coeffs, blinds[:, sl], key_type)
-            pt.mark("commit")
-            subshares = _subshare_phase(c_coeffs, key_type, xs_tuple)
-            pt.mark("subshare")
-            ok = _verify_phase_points(subshares, pts, key_type, xs_tuple)
-            pt.mark("vss_verify")
-            agg = subshares[0]
-            agg_pts = _pt(pts, 0)
-            for i in range(1, subshares.shape[0]):
-                agg = ring.addmod(agg, subshares[i])
-                agg_pts = mod.add(agg_pts, _pt(pts, i))
-            comp = mod.compress(agg_pts)  # (t+1, B', w)
-            pt.mark("aggregate")
-            return (yield ("share_egress", lambda: (
-                ok.cpu().numpy(), bn.limbs_to_numpy(agg), comp.cpu().numpy())))
+    def rounds(mark, c_coeffs, c_blinds):
+        pts, commits = _commit_phase(c_coeffs, c_blinds, key_type)
+        mark("commit", commits)
+        subshares = _subshare_phase(c_coeffs, key_type, xs_tuple)
+        mark("subshare", subshares)
+        ok = _verify_phase_points(subshares, pts, key_type, xs_tuple)
+        mark("vss_verify", ok)
+        agg = subshares[0]
+        agg_pts = _pt(pts, 0)
+        for i in range(1, subshares.shape[0]):
+            agg = ring.addmod(agg, subshares[i])
+            agg_pts = mod.add(agg_pts, _pt(pts, i))
+        comp = mod.compress(agg_pts)  # (t+1, B', w)
+        return lambda: (ok.cpu().numpy(), bn.limbs_to_numpy(agg), comp.cpu().numpy())
 
-        return run
+    if plan.serial:
+        ok, agg, comp = rounds(pt.mark, coeffs, blinds)()
+    else:
+        cohort_phases = [{} if pt.phases is not None else None for _ in range(plan.k)]
 
-    outs = pl.run_counter_phase([job(sl) for sl in plan.slices()])
-    ok = pl.merge_rows([o[0] for o in outs])
-    agg = pl.merge_rows([o[1] for o in outs], axis=1)
-    comp = pl.merge_rows([o[2] for o in outs], axis=1)
+        def job(ci: int, sl: slice):
+            def run():
+                cpt = tracing.PhaseTimer(
+                    engine, tracing.sync_tensors, phase_times=cohort_phases[ci],
+                    node="engine", tid=f"{pt.tid}:c{ci}",
+                )
+                return (yield ("share_egress", rounds(cpt.mark, coeffs[:, :, sl], blinds[:, sl])))
+
+            return run
+
+        outs = pl.run_counter_phase([job(ci, sl) for ci, sl in enumerate(plan.slices())])
+        tracing.add_phase_times(pt.phases, cohort_phases)
+        # the caller's last phase counts from here: the cohorts' rounds
+        # are their own phases
+        pt.restart()
+        ok = pl.merge_rows([o[0] for o in outs])
+        agg = pl.merge_rows([o[1] for o in outs], axis=1)
+        comp = pl.merge_rows([o[2] for o in outs], axis=1)
     return ok, agg, [[bytes(c) for c in row] for row in comp]
 
 
@@ -218,18 +234,19 @@ class BatchedDKG:
         """Per-party share lists (result[i] → party_ids[i]), wallet-aligned.
         Raises on any VSS failure. ``cohorts``: the counter-phase cohort
         count (shares are bit-identical for every count); ``phase_times``
-        receives wall seconds per phase (synchronizing the device)."""
+        receives wall seconds per phase, synchronizing the device, as the
+        ``phase:*`` spans do when tracing is on (phases ``commit``,
+        ``subshare``, ``vss_verify``, ``aggregate_assemble``)."""
         _, order = _curve(self.key_type)
         q, t, B = len(self.ids), self.t, n_wallets
         xs_tuple = tuple(self.xs[p] for p in self.ids)
-        pt = PhaseTimer(self.device, phase_times)
+        pt = tracing.PhaseTimer("dkg.run", tracing.sync_tensors, phase_times=phase_times,
+                                node="engine", tid=f"dkg:B{B}")
         coeffs = torch.as_tensor(_rand_scalars((q, t + 1, B), order, self.rng),
                                  device=self.device)
         blinds = _full_batch_blinds(self.rng, q, B, self.device)
-        pt.mark("draw")
-        ok, agg, comp = _vss_core(self.key_type, xs_tuple, coeffs, blinds,
-                                  pl.CohortPlan.for_batch(B, cohorts), phase_times)
-        pt.restart()
+        ok, agg, comp = _vss_core("dkg.run", self.key_type, xs_tuple, coeffs, blinds,
+                                  pl.CohortPlan.for_batch(B, cohorts), pt)
         if not bool(ok.all()):
             raise RuntimeError("batched DKG: VSS verification failed")
         shares_int = [bn.batch_from_limbs(agg[j], P256) for j in range(q)]
@@ -242,7 +259,7 @@ class BatchedDKG:
                     public_key=comp[0][w], vss_commitments=vss,
                     participants=list(self.ids), threshold=t,
                 ))
-        pt.mark("assemble")
+        pt.mark("aggregate_assemble")
         return out
 
 
@@ -280,7 +297,8 @@ class BatchedReshare:
         first = self.old_shares[0][0]
         old_xs = party_xs(first.participants)
         quorum_xs = [old_xs[p] for p in self.old_quorum]
-        pt = PhaseTimer(self.device, phase_times)
+        pt = tracing.PhaseTimer("reshare.run", tracing.sync_tensors, phase_times=phase_times,
+                                node="engine", tid=f"reshare:B{B}")
         # coefficient 0 = w_i = λ_i·x_i, drawn first and then overwritten
         coeffs_np = _rand_scalars((q_old, t_new + 1, B), order, self.rng)
         for i, pid in enumerate(self.old_quorum):
@@ -289,10 +307,8 @@ class BatchedReshare:
                 [lam * s.share % order for s in self.old_shares[i]], P256)
         coeffs = torch.as_tensor(coeffs_np, device=self.device)
         blinds = _full_batch_blinds(self.rng, q_old, B, self.device)
-        pt.mark("draw")
-        ok, agg, comp = _vss_core(self.key_type, xs_tuple, coeffs, blinds,
-                                  pl.CohortPlan.for_batch(B, cohorts), phase_times)
-        pt.restart()
+        ok, agg, comp = _vss_core("reshare.run", self.key_type, xs_tuple, coeffs, blinds,
+                                  pl.CohortPlan.for_batch(B, cohorts), pt)
         # redeal binding: Σ_i C_i0 must equal the old public key
         for w in range(B):
             if comp[0][w] != self.old_shares[0][w].public_key:
@@ -311,5 +327,5 @@ class BatchedReshare:
                     participants=list(self.new_committee), threshold=t_new, epoch=epoch,
                     aux={"is_reshared": True},
                 ))
-        pt.mark("assemble")
+        pt.mark("aggregate_assemble")
         return out

@@ -44,7 +44,6 @@ from ..core.bignum import P256 as PROF
 from ..device import resolve
 from ..ops import hash_suite as hs
 from ..utils import tracing
-from ..utils.tracing import PhaseTimer
 from . import pipeline as pl
 
 # 512-bit inputs (hash outputs, wide nonces) occupy 43 twelve-bit limbs —
@@ -358,9 +357,11 @@ class BatchedCoSigners:
         over the mesh (:func:`to_dev`), and its pieces run the round steps
         on their own devices. Equal-length messages hash their challenges
         on the device; a ragged batch hashes them on the host.
-        ``phase_times``: optional dict that receives wall seconds per phase
-        (each cohort's own rounds, cohorts added; the devices are
-        synchronized at each mark)."""
+        With tracing on, each cohort records its rounds as ``phase:*``
+        spans (tid ``eddsa:B<B>``, or ``…:c<i>`` for cohort i of several),
+        synchronizing its devices at each mark. ``phase_times``: optional
+        dict that receives wall seconds per phase the same way (each
+        cohort's own rounds, cohorts added)."""
         assert len(messages) == self.B
         q, B, dev = self.q, self.B, self.device
 
@@ -383,16 +384,21 @@ class BatchedCoSigners:
                 prefs[d] = hs.as_bytes(COMMIT_PREFIX, d)
             return prefs[d]
 
-        def job(sl: slice):
+        cohort_phases = [{} if phase_times is not None else None for _ in range(plan.k)]
+
+        def job(ci: int, sl: slice):
             def run():
-                pt = PhaseTimer(dev, phase_times)
+                pt = tracing.PhaseTimer(
+                    "eddsa.sign", tracing.sync_tensors, phase_times=cohort_phases[ci],
+                    node="engine", tid=f"eddsa:B{B}" if plan.serial else f"eddsa:B{B}:c{ci}",
+                )
                 sts = [round_step_nonce({"r64": r, "blinds": b}, pref(r.device))
                        for r, b in zip(to_dev(r64[:, sl], axis=1, device=dev),
                                        to_dev(blinds[:, sl], axis=1, device=dev),
                                        strict=True)]
-                pt.mark("r1_nonce_commit")
+                pt.mark("r1_nonce_commit", [st["commits"] for st in sts])
                 sts = [round_step_aggregate(st) for st in sts]
-                pt.mark("r2_decommit_aggregate")
+                pt.mark("r2_decommit_aggregate", [st["R_sum"] for st in sts])
                 ff = [st["fraud_free"] for st in sts]
                 if not (yield ("fraud_verdict", lambda: all(bool(f) for f in ff))):
                     raise RuntimeError("commitment fraud detected")
@@ -407,17 +413,18 @@ class BatchedCoSigners:
                         messages[sl]), device=dev)
                 sts = [round_step_partial(st, c, lx) for st, c, lx in zip(
                     sts, c64, to_dev(self.lamx[:, sl], axis=1, device=dev), strict=True)]
-                pt.mark("r3_challenge_partials_combine")
+                pt.mark("r3_challenge_partials_combine", [st["sigs"] for st in sts])
                 # local verification before publishing
                 ok = [verify_signatures(st["sigs"], a, c) & st["ok_R"]
                       for st, a, c in zip(sts, A_c, c64, strict=True)]
-                pt.mark("verify")
+                pt.mark("verify", ok)
                 sigs = [st["sigs"] for st in sts]
                 return (yield ("sig_egress", lambda: (gather_host(sigs), gather_host(ok))))
 
             return run
 
-        parts = pl.run_counter_phase([job(sl) for sl in plan.slices()])
+        parts = pl.run_counter_phase([job(ci, sl) for ci, sl in enumerate(plan.slices())])
+        tracing.add_phase_times(phase_times, cohort_phases)
         return (pl.merge_rows([p[0] for p in parts]), pl.merge_rows([p[1] for p in parts]))
 
 

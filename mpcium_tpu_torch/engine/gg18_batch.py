@@ -50,7 +50,7 @@ from ..ops.paillier_mxu import RAND_BITS, PaillierMXU, PaillierMXUPrivate
 from ..ops.sha256 import sha256 as dev_sha256
 from ..protocol.base import KeygenShare, party_xs
 from ..protocol.ecdsa import mta_ot
-from ..utils.tracing import PhaseTimer
+from ..utils import tracing
 from . import pipeline as pl
 from .abort import CohortAbort
 
@@ -871,15 +871,20 @@ class GG18BatchCoSigners:
         """``digests``: (B, 32) big-endian digests. Returns r, s (B, 32
         big-endian bytes), recovery (B,) and the ok mask (B,).
 
-        ``phase_times``: optional dict that receives wall seconds per
-        protocol phase (synchronizing the device at each boundary).
+        ``phase_times``: optional dict — when given, or when tracing is
+        on, the engine synchronizes the device at each phase boundary and
+        records wall seconds per protocol phase as ``phase:*`` spans and
+        in the dict (cohorts' phases added).
         ``cohorts``: counter-phase cohort count of the signing tail
         (None → ``MPCIUM_PIPELINE_COHORTS``, default 2); signatures are
         bit-identical for every count."""
         if self.mta_impl == "none":
             raise RuntimeError("curve_only signer has no MtA contexts — cannot sign()")
         dev = self.device
-        pt = PhaseTimer(dev, phase_times)
+        pt = tracing.PhaseTimer(
+            "gg18.sign", tracing.sync_tensors, phase_times=phase_times,
+            node="engine", tid=f"gg18:B{self.B}",
+        )
         B, q = self.B, self.q
         ring = self.ring
         dg = torch.as_tensor(np.ascontiguousarray(digests[:, ::-1]), device=dev)
@@ -899,11 +904,26 @@ class GG18BatchCoSigners:
             g_commit.append(commit)
 
         if self.mta_impl == "ot":
-            pt.mark("r1_commit_encrypt_rangeproof")
-            alpha_shares, beta_shares = self._mta_ot(k, gamma, phase_times is not None)
-            pt.mark("r2_mta_ot")
+            pt.mark("r1_commit_encrypt_rangeproof", *Gamma_comp)
+            alpha_shares, beta_shares = self._mta_ot(k, gamma, pt.on)
+            # the OT phase's host/device split rides the span as attrs (and
+            # the dict as r2_mta_ot_* keys), as in the JAX engine; the
+            # device path has no host worker, so host and device read 0
+            ot_attrs = {}
+            if self.ot_timings:
+                host_s = self.ot_timings.get("host_s", 0.0)
+                hidden = max(0.0, host_s - self.ot_timings.get("host_wait_s", 0.0))
+                ot_attrs = {
+                    "host": host_s,
+                    "device": self.ot_timings.get("device_wait_s", 0.0),
+                    "overlap_ratio": hidden / host_s if host_s > 0 else 0.0,
+                    "chunks": float(mta_ot.resolve_chunks(B)),
+                }
+            pt.mark("r2_mta_ot", *[alpha_shares[(a, b, "w")] for a, b in self.pairs],
+                    **ot_attrs)
+            self._check_blame()
             return self._finish_sign(
-                pt, phase_times, m, torch.ones((B,), dtype=torch.bool, device=dev),
+                pt, m, torch.ones((B,), dtype=torch.bool, device=dev),
                 k, gamma, Gamma, Gamma_comp, g_commit, g_blind, alpha_shares,
                 beta_shares, cohorts=cohorts,
             )
@@ -925,7 +945,7 @@ class GG18BatchCoSigners:
             e = mta.e_limbs(mta.alice_challenge(c_k[a], T))
             P = mta.alice_finish(e, k_plain[a], Ra, u_k[a])
             mta_state[(a, b)] = {"Ra": Ra, "T": T, "e": e, "P": P}
-        pt.mark("r1_commit_encrypt_rangeproof")
+        pt.mark("r1_commit_encrypt_rangeproof", *[mta_state[p]["P"]["s"] for p in self.pairs])
 
         ok = torch.ones((B,), dtype=torch.bool, device=dev)
 
@@ -948,7 +968,7 @@ class GG18BatchCoSigners:
                 e_b = mta.e_limbs(mta.bob_challenge(c_k[a], Tb, extra))
                 Pb = mta.bob_finish(e_b, b_e, Rb)
                 st[name] = {"Rb": Rb, "Tb": Tb, "e": e_b, "Pb": Pb, "U": U_pt}
-        pt.mark("r2_mta_respond")
+        pt.mark("r2_mta_respond", ok, *[mta_state[p]["w"]["Tb"]["c_b"] for p in self.pairs])
 
         # ---- round 3: Alice verifies + decrypts; δ_i, σ_i ------------------
         alpha_shares = {}
@@ -972,19 +992,16 @@ class GG18BatchCoSigners:
                 beta_shares[(a, b, name)] = ring.negmod(
                     _mod_q_from_limbs(sub["Rb"]["beta_prime"], mta.p_bp)
                 )
-        pt.mark("r3_verify_decrypt")
 
         return self._finish_sign(
-            pt, phase_times, m, ok, k, gamma, Gamma, Gamma_comp, g_commit,
+            pt, m, ok, k, gamma, Gamma, Gamma_comp, g_commit,
             g_blind, alpha_shares, beta_shares, cohorts=cohorts,
         )
 
     def _mta_ot(self, k, gamma, timed: bool):
         """The OT path's rounds 1-3: per ordered pair one extension serves
-        both products, α + β ≡ k_a·γ_b and k_a·w_b (mod q). Every leg runs
-        its checks; a blamed lane aborts the cohort naming the offending
-        (lane, party, check), the first blame of a lane in pair order
-        (Alice of leg (a, b) is party a, Bob party b). → (alpha_shares,
+        both products, α + β ≡ k_a·γ_b and k_a·w_b (mod q); every leg runs
+        its checks (read by :meth:`_check_blame`). → (alpha_shares,
         beta_shares) keyed (a, b, "gamma" | "w")."""
         chunks = mta_ot.resolve_chunks(self.B)
         self.ot_timings = {} if timed else None
@@ -996,6 +1013,12 @@ class GG18BatchCoSigners:
             for name, (al, be) in zip(("gamma", "w"), shares):
                 alpha_shares[(a, b, name)] = al
                 beta_shares[(a, b, name)] = be
+        return alpha_shares, beta_shares
+
+    def _check_blame(self) -> None:
+        """A blamed lane aborts the cohort naming the offending (lane,
+        party, check), the first blame of a lane in pair order (Alice of
+        leg (a, b) is party a, Bob party b)."""
         blamed: Dict[int, Tuple[str, str]] = {}
         for (a, b) in self.pairs:
             for lane, verdict in enumerate(self.ot_legs[(a, b)].check_blame() or ()):
@@ -1008,14 +1031,16 @@ class GG18BatchCoSigners:
                 [(lane, pid, check) for lane, (pid, check) in sorted(blamed.items())],
                 engine="gg18.sign",
             )
-        return alpha_shares, beta_shares
 
     def _finish_sign(
-        self, pt, phase_times, m, ok, k, gamma, Gamma, Gamma_comp, g_commit,
+        self, pt, m, ok, k, gamma, Gamma, Gamma_comp, g_commit,
         g_blind, alpha_shares, beta_shares, cohorts: Optional[int] = None,
     ) -> Dict[str, np.ndarray]:
         """Shared tail, cohort-pipelined: all tail randomness is drawn here,
-        full batch, in the serial order, then row-sliced per cohort."""
+        full batch, in the serial order, then row-sliced per cohort. Each
+        cohort has its own phase timer (tid ``…:c<i>``), so the idle meter
+        sees the counter-phase overlap; their phase dicts are added into
+        the caller's afterwards."""
         B = self.B
         rand = {
             "kpok": self._rand_scalars_q(),
@@ -1034,9 +1059,14 @@ class GG18BatchCoSigners:
             )
             return _sig_egress(r_d, s_d, rec_d, ok_d)
 
-        def job(sl: slice):
+        cohort_phases = [{} if pt.phases is not None else None for _ in range(plan.k)]
+
+        def job(ci: int, sl: slice):
             def run():
-                pt_c = PhaseTimer(self.device, phase_times)
+                pt_c = tracing.PhaseTimer(
+                    "gg18.sign", tracing.sync_tensors, phase_times=cohort_phases[ci],
+                    node="engine", tid=f"gg18:B{B}:c{ci}",
+                )
                 r_d, s_d, rec_d, ok_d = self._tail_cohort(
                     pt_c, m[sl], ok[sl],
                     [x[sl] for x in k],
@@ -1056,7 +1086,8 @@ class GG18BatchCoSigners:
 
             return run
 
-        parts = pl.run_counter_phase([job(sl) for sl in plan.slices()])
+        parts = pl.run_counter_phase([job(ci, sl) for ci, sl in enumerate(plan.slices())])
+        tracing.add_phase_times(pt.phases, cohort_phases)
         return {key: pl.merge_rows([p[key] for p in parts]) for key in parts[0]}
 
     def _tail_cohort(
@@ -1085,6 +1116,7 @@ class GG18BatchCoSigners:
                 )
             delta_i.append(d)
             sigma_i.append(s_)
+        pt.mark("r3_verify_decrypt", ok, *delta_i, *sigma_i)
 
         # ---- rounds 4-9: R reconstruction + phase 5 ----------------------
         for i in range(q):
@@ -1103,7 +1135,7 @@ class GG18BatchCoSigners:
             ok = ok & _blk_schnorr(
                 kpok[i], gamma[i], Gamma[i], Gamma_comp[i], _idx_row(i, B, dev)
             )
-        pt.mark("r4_R_reconstruct_pok")
+        pt.mark("r4_R_reconstruct_pok", ok, r)
 
         li, ri, ka, kb = rand["li"], rand["ri"], rand["ka"], rand["kb"]
         va_blind, ut_blind = rand["va_blind"], rand["ut_blind"]
@@ -1150,7 +1182,7 @@ class GG18BatchCoSigners:
         for i in range(1, q):
             s = ring.addmod(s, s_i[i])
         st = _step_final({"s": s, "m": m, "r": r, "rec": rec, "ok": ok}, Y)
-        pt.mark("r5_phase5_combine_verify")
+        pt.mark("r5_phase5_combine_verify", st["ok"])
         return st["r"], st["s"], st["rec"], st["ok"]
 
 

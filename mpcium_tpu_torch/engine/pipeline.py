@@ -8,7 +8,9 @@ is a generator that *yields* its host stages as ``(label, thunk)``;
 :func:`run_counter_phase` drives the K generators round-robin on the
 main thread with ONE background host worker, so while one cohort's host
 stage (signature egress) drains, the next cohort's device rounds are
-queued (PyTorch on a GPU does not block until a value is read).
+queued (PyTorch on a GPU does not block until a value is read). Host
+stages are recorded as ``host:<label>`` spans with a ``cohort`` attribute
+while tracing is on.
 
 Transcript discipline: callers draw ALL secret randomness for the full
 batch in K=1 serial order *before* splitting, then row-slice per cohort,
@@ -16,7 +18,8 @@ so signatures are bit-identical for every K. Cohort widths stay on the
 pow-2 bucket grid; :func:`resolve_cohorts` falls back to K=1 whenever a
 split would leave it.
 
-Pure stdlib (plus torch/numpy in :func:`merge_rows`).
+Stdlib apart from the port's tracing (which imports torch) and torch/numpy
+in :func:`merge_rows`.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Generator, List, Optional, Sequence, Tuple
 
+from ..utils import tracing
 from .abort import CohortAbort
 from .buckets import is_bucket
 
@@ -161,8 +165,17 @@ CohortJob = Callable[[], Generator[Tuple[str, Callable[[], Any]], Any, Any]]
 
 
 def _run_host_stage(label: str, thunk: Callable[[], Any], cohort: int) -> Any:
-    """Execute one host stage (``label``/``cohort`` name it for readers)."""
-    return thunk()
+    """Execute one host stage, recorded as a ``host:<label>`` span with
+    the cohort attribute (the engines' device rounds are ``phase:*``
+    spans; ``tracing.device_idle_fraction`` reads both)."""
+    t0 = tracing.now_ns()
+    try:
+        return thunk()
+    finally:
+        tracing.emit(
+            f"host:{label}", t0, tracing.now_ns(),
+            node="engine", kind="X", cohort=cohort,
+        )
 
 
 def run_counter_phase(jobs: Sequence[CohortJob]) -> List[Any]:

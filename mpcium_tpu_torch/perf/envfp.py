@@ -7,7 +7,8 @@ reads torch: ``torch`` (the version), ``cuda`` (the toolkit torch was
 built with) and the device facts of an already-imported torch —
 ``platform`` ("gpu" when a CUDA device is present, else "cpu"),
 ``device_kind`` (``torch.cuda.get_device_name(0)``) and ``device_count``.
-``host_fingerprint`` and ``git_sha`` are the JAX package's.
+``host_fingerprint``, ``git_sha`` and ``fingerprint_key`` (the ledger's
+grouping key) are the JAX package's.
 
 Import-light like the JAX copy: torch is read from ``sys.modules`` and
 never imported here, so stamping a record costs no backend bring-up.
@@ -118,3 +119,21 @@ def env_fingerprint() -> Dict[str, object]:
     }
     fp.update(device_facts())
     return fp
+
+
+def fingerprint_key(env: Optional[Dict[str, object]],
+                    platform_hint: Optional[str] = None) -> str:
+    """The ledger's grouping key: ``<platform>/<host>[/<n>x<kind>]``, the
+    JAX package's rule, so a stamp of either package groups by the
+    platform, host and devices it names (the port's ``gpu`` stamps apart
+    from ``tpu`` and ``cpu``). Records without a stamp group under
+    ``<platform-hint>/unstamped`` so they never blend into a stamped
+    trend."""
+    if not env:
+        return f"{platform_hint or 'unknown'}/unstamped"
+    platform = str(env.get("platform") or platform_hint or "unknown")
+    host = str(env.get("host") or "unknown")
+    key = f"{platform}/{host}"
+    if env.get("device_count"):
+        key += f"/{env['device_count']}x{env.get('device_kind', '?')}"
+    return key

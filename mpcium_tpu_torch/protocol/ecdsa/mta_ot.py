@@ -49,6 +49,7 @@ from ...core.bignum import P256
 from ...core.fields import secp256k1_field
 from ...device import resolve
 from ...ops import hash_suite as hs
+from ...utils import tracing
 
 KAPPA = 128  # IKNP width / computational security parameter
 NBITS = 256  # multiplicand bits (secp256k1 scalars)
@@ -832,15 +833,22 @@ class OTMtALeg:
         tag = self._ext_tag(ctr)
         M = B * NBITS
         t_total0 = time.perf_counter()
+        t_span0 = tracing.now_ns()
         # z randomness: one draw per payload set, in the serial order —
         # the only rng use, so chunking cannot move the stream
         z_raw = [
             np.frombuffer(self.rng.token_bytes(M * 32), np.uint8).reshape(B, NBITS, 32)
             for _ in b_list
         ]
-        return self._run_multi_device(
-            a, b_list, K, tag, z_raw, timings, transcript, t_total0
+        out = self._run_multi_device(a, b_list, K, tag, z_raw, timings, transcript, t_total0)
+        # the extension's span, as the JAX leg records it on its device path
+        tracing.emit(
+            "phase:ot_extension", t_span0, tracing.now_ns(),
+            node="engine", tid=f"ot:B{B}",
+            host_wait_s=0.0, device_wait_s=0.0,
+            chunks=K, sets=len(b_list), device=True, checks=ot_checks_enabled(),
         )
+        return out
 
     def _run_multi_tampered(self, a, b_list):
         """The three-round composition with one corruption applied to the

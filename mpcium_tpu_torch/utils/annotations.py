@@ -1,5 +1,5 @@
-"""Runtime-side mpclint annotations (zero-cost at runtime; the port's
-copy of ``locked_by`` from the JAX package's ``utils/annotations.py``).
+"""Runtime-side mpclint/mpcflow annotations (zero-cost at runtime; the
+port's copy of the JAX package's ``utils/annotations.py``).
 
 ``@locked_by(lock, *fields)`` declares which instance attributes a class
 guards under which lock. mpclint's lock-discipline rule (MPL301) reads
@@ -19,9 +19,31 @@ See STATIC_ANALYSIS.md for the full registry.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple, TypeVar
+from typing import Callable, Dict, Generic, Tuple, TypeVar
 
 T = TypeVar("T", bound=type)
+_V = TypeVar("_V")
+
+
+class Secret(Generic[_V]):
+    """Type-annotation marker: the annotated value IS secret material,
+    whatever its spelling. mpcflow reads it statically — a parameter or
+    return annotated ``Secret[...]`` seeds the MPF7xx taint lattice at
+    every call boundary::
+
+        def load_share(self, ...) -> "Secret[KeygenShare]": ...
+        def seal(self, plaintext: "Secret[bytes]") -> bytes: ...
+
+    At runtime it is inert: ``Secret[bytes]`` is just ``bytes``, and
+    nothing is instantiated. Use string-form annotations (as above)."""
+
+    def __class_getitem__(cls, item):
+        return item
+
+
+# thread-name prefixes the tests' leak checker treats as process-lifetime
+# singletons; MPL502 accepts threads named under them as "registered"
+REGISTERED_THREAD_PREFIXES: Tuple[str, ...] = ("ot-host",)
 
 
 def locked_by(lock: str, *fields: str) -> Callable[[T], T]:

@@ -4,7 +4,8 @@
 Span identity is ``trace_id`` / ``span_id`` / ``parent_id``; clocks are
 ``time.monotonic_ns`` so spans from every node of an in-process cluster
 share one timebase. Attributes are public metadata only: names that hit
-the secret taxonomy (``analysis/taxonomy.py``) are refused.
+the secret taxonomy (``analysis/taxonomy.py``) are refused unless the
+name was declassified with a reason (:func:`declassify_attr`).
 
 Disabled (the default), :func:`span` returns a shared inert singleton
 and :func:`emit`, :func:`instant` and :func:`incident` return at once,
@@ -16,12 +17,16 @@ would attach; the port installs none yet. Ids come from a process-local
 counter and a keyed hash of public names (:func:`trace_id_for`), so a
 traced run makes the same decisions as an untraced one.
 
-:func:`span_sync` and :class:`PhaseTimer` are the port's own: inside a
-span they synchronize the device so the span is honest device time,
-only while tracing (or the timer) is on. Under an armed session mesh
+:class:`PhaseTimer` is the engines' phase instrumentation, with the JAX
+package's signature and spans (``phase:<name>``); its sync is
+:func:`sync_tensors`. :func:`span_sync` is the port's own: inside a span
+it synchronizes the device so the span is honest device time, only while
+tracing is on. Under an armed session mesh
 (``engine/eddsa_batch.arm_session_sharding`` calls
-:func:`set_mesh_devices`) they synchronize every mesh device as well,
-or a span would time shard 0 alone.
+:func:`set_mesh_devices`) both synchronize every mesh device as well, or
+a span would time shard 0 alone. :func:`phase_share` and
+:func:`device_idle_fraction` fold recorded spans back into a phase table
+and the share of the traced window outside every phase.
 """
 from __future__ import annotations
 
@@ -42,6 +47,10 @@ _incident_hook: Optional[Callable[[str, str, dict], None]] = None
 
 _ids = itertools.count(1)
 _state = threading.local()  # .stack: List[Span] of open spans in this thread
+
+# attribute names that hit the secret taxonomy but were reviewed as
+# public metadata; name -> reason (the declassify registry, runtime half)
+_DECLASSIFIED_ATTRS: Dict[str, str] = {}
 
 _ATTR_SCALARS = (str, int, float, bool, type(None))
 
@@ -73,6 +82,18 @@ def set_incident_hook(hook: Optional[Callable[[str, str, dict], None]]) -> None:
     _incident_hook = hook
 
 
+def declassify_attr(name: str, reason: str) -> None:
+    """Register a taxonomy-hitting attribute name as reviewed-public.
+    The reason is mandatory and kept for the audit surface."""
+    if not reason or not reason.strip():
+        raise ValueError(f"declassify_attr({name!r}) requires a reason")
+    _DECLASSIFIED_ATTRS[name] = reason
+
+
+def declassified_attrs() -> Dict[str, str]:
+    return dict(_DECLASSIFIED_ATTRS)
+
+
 def _is_secret_attr(name: str) -> bool:
     # lazy import, as in the JAX package: tracing imports nothing of the
     # project at load time, so every layer can depend on it
@@ -83,12 +104,12 @@ def _is_secret_attr(name: str) -> bool:
 
 def clean_attrs(attrs: Dict[str, Any]) -> Dict[str, Any]:
     """Attribute hygiene: secret-taxonomy names are refused (value
-    replaced with a marker, the value itself never retained); non-scalar
-    values are reduced to their type name so no object repr can smuggle
-    key material into a trace."""
+    replaced with a marker, the value itself never retained) unless
+    declassified; non-scalar values are reduced to their type name so no
+    object repr can smuggle key material into a trace."""
     out: Dict[str, Any] = {}
     for k, v in attrs.items():
-        if _is_secret_attr(k):
+        if k not in _DECLASSIFIED_ATTRS and _is_secret_attr(k):
             out[k] = "<refused:secret-name>"
             continue
         if isinstance(v, _ATTR_SCALARS):
@@ -323,40 +344,170 @@ def set_mesh_devices(devices) -> None:
     _MESH_DEVICES = tuple(devices)
 
 
-def _sync(device: torch.device) -> None:
-    for d in dict.fromkeys((device,) + _MESH_DEVICES):
+def _sync(devices) -> None:
+    for d in dict.fromkeys(tuple(devices) + _MESH_DEVICES):
         if d.type == "cuda":
             torch.cuda.synchronize(d)
+
+
+def _tensor_devices(tree, out: list) -> list:
+    if isinstance(tree, torch.Tensor):
+        out.append(tree.device)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _tensor_devices(v, out)
+    elif isinstance(tree, (list, tuple)):  # lists of pieces, point tuples
+        for v in tree:
+            _tensor_devices(v, out)
+    return out
+
+
+def sync_tensors(tensors) -> None:
+    """The engines' phase-boundary sync (the JAX package's
+    ``block_until_ready``): finish the work queued on every device that
+    holds one of ``tensors`` (tensors, or lists, tuples and dicts of
+    them) and on every device of the armed mesh."""
+    _sync(_tensor_devices(tensors, []))
 
 
 def span_sync(device: torch.device) -> None:
     """Finish the device work queued inside a span before it closes, so
     the span is honest device time — only while tracing is on."""
     if _ENABLED:
-        _sync(device)
+        _sync((device,))
 
 
 class PhaseTimer:
-    __slots__ = ("on", "phases", "device", "last")
+    """Engine-side phase instrumentation (the JAX package's
+    ``PhaseTimer``): device-phase spans with a sync at each phase
+    boundary, ONLY when tracing is on or a ``phase_times`` dict was
+    asked for. ``sync`` is supplied by the engine (:func:`sync_tensors`).
 
-    def __init__(self, device: torch.device,
-                 phase_times: Optional[Dict[str, float]] = None) -> None:
-        self.on = phase_times is not None
+    ``mark(name, *tensors, **attrs)`` closes the interval since the
+    previous mark as a span ``phase:<name>`` with the numeric ``attrs``,
+    and sets ``phase_times[name]`` to its seconds (and each numeric attr
+    as ``<name>_<attr>``). Off, ``mark`` is one attribute load and a
+    return: no sync, no allocation. :meth:`restart` is the port's own: a
+    cohort that resumes after a host stage starts its next phase then,
+    so the wait for other cohorts counts in none of its phases."""
+
+    __slots__ = ("on", "phases", "_sync", "node", "tid", "trace_id",
+                 "parent_id", "last_ns")
+
+    def __init__(
+        self,
+        engine: str,
+        sync: Callable[..., Any],
+        *,
+        phase_times: Optional[Dict[str, float]] = None,
+        node: str = "local",
+        tid: Optional[str] = None,
+    ) -> None:
+        self.on = _ENABLED or phase_times is not None
         self.phases = phase_times
-        self.device = device
-        self.last = time.perf_counter() if self.on else 0.0
+        self._sync = sync
+        self.node = node
+        self.tid = tid or engine
+        self.trace_id = trace_id_for(engine) if self.on else None
+        ids = current_ids()
+        self.parent_id = ids[1] if ids else None
+        if ids:
+            self.trace_id = ids[0]
+        self.last_ns = now_ns() if self.on else 0
 
-    def mark(self, name: str) -> None:
+    def mark(self, name: str, *tensors: Any, **attrs: Any) -> None:
         if not self.on:
             return
-        _sync(self.device)
-        t = time.perf_counter()
-        self.phases[name] = self.phases.get(name, 0.0) + (t - self.last)
-        self.last = t
+        if tensors:
+            self._sync(tensors)
+        t = now_ns()
+        if self.phases is not None:
+            self.phases[name] = (t - self.last_ns) / 1e9
+            for k, v in attrs.items():
+                if isinstance(v, (int, float)) and not isinstance(v, bool):
+                    self.phases[f"{name}_{k}"] = v
+        emit(
+            f"phase:{name}", self.last_ns, t,
+            node=self.node, tid=self.tid,
+            trace_id=self.trace_id, parent_id=self.parent_id,
+            **attrs,
+        )
+        self.last_ns = t
 
     def restart(self) -> None:
-        """Start the next phase now: a cohort calls this when it resumes,
-        so time spent on other cohorts' rounds counts in none of its
-        phases."""
         if self.on:
-            self.last = time.perf_counter()
+            self.last_ns = now_ns()
+
+
+def add_phase_times(total: Optional[Dict[str, float]], parts) -> None:
+    """Sum per-cohort phase dicts into the caller's (the JAX engines'
+    rule for cohorted runs); no-op when the caller asked for none."""
+    if total is None:
+        return
+    for d in parts:
+        for name, v in (d or {}).items():
+            total[name] = total.get(name, 0.0) + v
+
+
+def phase_share(spans: List[dict]) -> Dict[str, float]:
+    """Fold phase spans back into a phase table: span ``phase:<name>`` ->
+    ``{name: seconds}`` and pipeline host stages ``host:<name>`` ->
+    ``{host_<name>: seconds}``, summed over cohorts, with numeric span
+    attrs flattened as ``<name>_<attr>`` (the OT host/device split).
+
+    A run that produced no phase spans returns the explicit
+    ``{"no_spans": 0.0}`` marker instead of an empty dict, so a reader
+    can tell "nothing measured" from "lost"."""
+    out: Dict[str, float] = {}
+    for s in spans:
+        if s["name"].startswith("phase:"):
+            name = s["name"][len("phase:"):]
+        elif s["name"].startswith("host:"):
+            name = "host_" + s["name"][len("host:"):]
+        else:
+            continue
+        out[name] = out.get(name, 0.0) + (s["t1_ns"] - s["t0_ns"]) / 1e9
+        for k, v in s.get("attrs", {}).items():
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                out[f"{name}_{k}"] = v
+    if not out:
+        return {"no_spans": 0.0}
+    return out
+
+
+def device_idle_fraction(spans: List[dict]) -> float:
+    """Fraction of the traced window in which NO ``phase:*`` span was
+    open. The window runs from the first to the last edge over both
+    device (``phase:*``) and pipeline host-stage (``host:*``) spans, so
+    host time at the edges counts against the device; overlapping phase
+    spans (counter-phase cohorts) are unioned, not summed. 0.0 when no
+    phase span exists (nothing measured, nothing claimable).
+
+    A phase span is host time too (the engine enqueues, then syncs at
+    the mark), so this is the share of the window outside every phase,
+    not the card's idle share: ``perf.profile.fold_device_ops`` gives
+    the device seconds inside each phase."""
+    dev: List[tuple] = []
+    lo = hi = None
+    for s in spans:
+        name = s.get("name", "")
+        if not (name.startswith("phase:") or name.startswith("host:")):
+            continue
+        t0, t1 = s["t0_ns"], s["t1_ns"]
+        lo = t0 if lo is None else min(lo, t0)
+        hi = t1 if hi is None else max(hi, t1)
+        if name.startswith("phase:"):
+            dev.append((t0, t1))
+    if not dev or hi is None or hi <= lo:
+        return 0.0
+    dev.sort()
+    busy = 0
+    cur0, cur1 = dev[0]
+    for t0, t1 in dev[1:]:
+        if t0 > cur1:
+            busy += cur1 - cur0
+            cur0, cur1 = t0, t1
+        else:
+            cur1 = max(cur1, t1)
+    busy += cur1 - cur0
+    return max(0.0, 1.0 - busy / (hi - lo))

@@ -13,7 +13,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "mpcium_tpu"}
 SCRIPTS = ["torch_chaos_drill.py", "torch_load_soak.py", "torch_chaos_soak_alone.py",
-           "torch_boot_alone.py", "torch_sign_ab.py", "torch_k0_ab.py"]
+           "torch_boot_alone.py", "torch_sign_ab.py", "torch_k0_ab.py", "torch_profile_alone.py"]
 SOURCES = sorted((ROOT / "mpcium_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
     ROOT / "scripts" / name for name in SCRIPTS]
 
@@ -69,6 +69,11 @@ def test_the_guard_sees_every_port_module_and_every_import_form(tmp_path):
     boot = ["engine/sharded", "warm/manifest", "warm/prewarm"]
     assert {f"mpcium_tpu_torch/{m}.py" for m in boot} <= names
     assert all((ROOT / "mpcium_tpu" / f"{m}.py").is_file() for m in boot)
+    # the measurement tooling
+    perf = ["perf/profile", "perf/statcheck", "perf/microbench", "perf/ledger", "perf/report",
+            "perf/claims", "utils/annotations"]
+    assert {f"mpcium_tpu_torch/{m}.py" for m in perf} <= names
+    assert all((ROOT / "mpcium_tpu" / f"{m}.py").is_file() for m in perf)
     sample = tmp_path / "sample.py"
     sample.write_text("import jax.numpy as jnp\n"
                       "def f():\n"

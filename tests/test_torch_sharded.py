@@ -213,12 +213,12 @@ def test_span_syncs_cover_every_mesh_device(monkeypatch):
         tracing.disable()
     synced.clear()
     tracing.span_sync(torch.device("cuda:0"))  # tracing off: no sync
-    pt = tracing.PhaseTimer(torch.device("cpu"), {})
-    pt.mark("p")
+    pt = tracing.PhaseTimer("eddsa.sign", tracing.sync_tensors, phase_times={})
+    pt.mark("p", torch.zeros(1))  # a CPU tensor: the mesh's devices still sync
     assert synced == ["cuda:0", "cuda:1"]
     eb.arm_session_sharding(None)
     synced.clear()
-    pt.mark("q")
+    pt.mark("q", torch.zeros(1))
     assert synced == []
 
 
