@@ -8,7 +8,9 @@ token (``share``, ``seed``, ``pad``, ``nonce``, ``sk``, ``secret``,
 ``_key``/``_keys`` — unless a *public* token exempts it (``pub_key``,
 ``public_key``, ``wallet_id`` are data, not secrets). ``utils/log.py``
 redacts such objects from log lines and ``utils/tracing.py`` refuses
-span attributes so named.
+span attributes so named. The secret-hygiene rules (MPL1xx) and the
+taint pass (MPF7xx) of ``analysis/`` read the same names, with the
+per-file ``# mpclint: secret`` annotations merged in.
 """
 from __future__ import annotations
 
@@ -97,3 +99,20 @@ def is_secret_name(name: str, extra: Iterable[str] = ()) -> bool:
     if _KEY_SUFFIX_RE.fullmatch(name) or name in ("key32",):
         return True
     return False
+
+
+# identifiers whose == / != comparison must be constant-time: MAC tags,
+# digests, signatures over secrets, tokens (MPL103)
+COMPARE_SENSITIVE_TOKENS: Set[str] = {
+    "tag",
+    "mac",
+    "hmac",
+    "digest",
+    "token",
+}
+
+
+def is_compare_sensitive(name: str, extra: Iterable[str] = ()) -> bool:
+    if is_secret_name(name, extra):
+        return True
+    return bool(tokens(name) & COMPARE_SENSITIVE_TOKENS)

@@ -119,7 +119,8 @@ def _xj_bits(xs: Sequence[int], device) -> torch.Tensor:
                         device=device)
 
 
-def _blk_vss_check(subshare: torch.Tensor, pts, xbits: torch.Tensor, key_type: str):
+def _blk_vss_check(subshare: torch.Tensor, pts, xbits: torch.Tensor,
+                   key_type: str) -> torch.Tensor:
     """Feldman check f(x)·G == Σ_k x^k·C_k by point-Horner.
 
     ``pts``: commitment points with the degree as leading axis (C_0 …
@@ -176,7 +177,11 @@ def _vss_core(engine: str, key_type: str, xs_tuple: Tuple[int, ...],
             agg = ring.addmod(agg, subshares[i])
             agg_pts = mod.add(agg_pts, _pt(pts, i))
         comp = mod.compress(agg_pts)  # (t+1, B', w)
-        return lambda: (ok.cpu().numpy(), bn.limbs_to_numpy(agg), comp.cpu().numpy())
+        return lambda: (
+            ok.cpu().numpy(),  # mpcflow: host-ok — verdict egress
+            bn.limbs_to_numpy(agg),  # mpcflow: host-ok — aggregated shares leave device once per cohort
+            comp.cpu().numpy(),  # mpcflow: host-ok — public-point wire serialization (compressed bytes)
+        )
 
     if plan.serial:
         ok, agg, comp = rounds(pt.mark, coeffs, blinds)()

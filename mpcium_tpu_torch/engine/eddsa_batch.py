@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import hashlib
 import secrets
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -197,7 +197,7 @@ def _commit_msg(pref: torch.Tensor, blinds: torch.Tensor, R_comp: torch.Tensor):
     return torch.cat([pref.expand((q, B) + pref.shape), blinds, R_comp], dim=-1)
 
 
-def round_step_nonce(st: dict, pref: torch.Tensor) -> dict:
+def round_step_nonce(st: dict, pref: torch.Tensor) -> Dict[str, torch.Tensor]:
     """R1: ``{r64 (q,B,64), blinds (q,B,32)}`` → ``{r, R_comp,
     commit_msg, commits}``."""
     r, R_comp = nonce_commitments(st["r64"])
@@ -206,7 +206,7 @@ def round_step_nonce(st: dict, pref: torch.Tensor) -> dict:
             "commits": hs.sha256(commit_msg)}
 
 
-def round_step_aggregate(st: dict) -> dict:
+def round_step_aggregate(st: dict) -> Dict[str, torch.Tensor]:
     """R2: re-hash the received commitment tensors (one fraud verdict for
     the batch) and aggregate the nonce points."""
     again = hs.sha256(st["commit_msg"])
@@ -215,7 +215,8 @@ def round_step_aggregate(st: dict) -> dict:
             "fraud_free": torch.all(again == st["commits"])}
 
 
-def round_step_partial(st: dict, c64: torch.Tensor, lamx: torch.Tensor) -> dict:
+def round_step_partial(st: dict, c64: torch.Tensor,
+                       lamx: torch.Tensor) -> Dict[str, torch.Tensor]:
     """R3: partial signatures + combine."""
     q = st["r"].shape[0]
     parts = partial_signature(st["r"], c64.expand((q,) + c64.shape), lamx)
@@ -252,7 +253,7 @@ def challenge_hashes(
     lens = {len(m) for m in messages}
     if len(lens) == 1:
         M = np.frombuffer(b"".join(messages), np.uint8).reshape(len(messages), lens.pop())
-        return challenge_device(R_comp, A_comp, M, device).cpu().numpy()
+        return challenge_device(R_comp, A_comp, M, device).cpu().numpy()  # mpcflow: host-ok — host-facing helper egress; the batch engine uses challenge_device and keeps c64 on device
     return challenge_hashes_host(R_comp, A_comp, messages)
 
 
@@ -400,7 +401,7 @@ class BatchedCoSigners:
                 sts = [round_step_aggregate(st) for st in sts]
                 pt.mark("r2_decommit_aggregate", [st["R_sum"] for st in sts])
                 ff = [st["fraud_free"] for st in sts]
-                if not (yield ("fraud_verdict", lambda: all(bool(f) for f in ff))):
+                if not (yield ("fraud_verdict", lambda: all(bool(f) for f in ff))):  # mpcflow: host-ok — commitment-fraud verdict egress (one bool per device)
                     raise RuntimeError("commitment fraud detected")
                 pt.restart()
                 A_c = to_dev(self.A_comp[sl], device=dev)
@@ -409,7 +410,7 @@ class BatchedCoSigners:
                            zip(sts, A_c, to_dev(Mrows[sl], device=dev), strict=True)]
                 else:
                     c64 = to_dev(challenge_hashes_host(
-                        gather_host([st["R_sum"] for st in sts]), self.A_comp[sl],
+                        gather_host([st["R_sum"] for st in sts]), self.A_comp[sl],  # mpcflow: host-ok — ragged-message fallback: per-row hashlib reads host bytes; the equal-length default stays on device
                         messages[sl]), device=dev)
                 sts = [round_step_partial(st, c, lx) for st, c, lx in zip(
                     sts, c64, to_dev(self.lamx[:, sl], axis=1, device=dev), strict=True)]
@@ -419,7 +420,7 @@ class BatchedCoSigners:
                       for st, a, c in zip(sts, A_c, c64, strict=True)]
                 pt.mark("verify", ok)
                 sigs = [st["sigs"] for st in sts]
-                return (yield ("sig_egress", lambda: (gather_host(sigs), gather_host(ok))))
+                return (yield ("sig_egress", lambda: (gather_host(sigs), gather_host(ok))))  # mpcflow: host-ok — signature egress: final (R,s) + verdicts leave device for callers
 
             return run
 

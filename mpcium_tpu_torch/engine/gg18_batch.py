@@ -382,7 +382,7 @@ class MtaBatch:
         rho_l = _bits_pack(rho_bits, _prof7(RHO_BITS))
         tot = A.pmx.ctx_N.reduce(_fold_add(mm.mul_pair(rho_l, s1_modN)))
         lhs = n2.mulmod(A.pmx.enc_deterministic(tot), SN)
-        if bool(_eq_all(lhs, Rp)[0]):
+        if bool(_eq_all(lhs, Rp)[0]):  # mpcflow: host-ok — single aggregated proof verdict gates the strict fallback
             return torch.ones((B,), dtype=torch.bool, device=self.device)
         return self._alice_enc_leg_strict(c_a, T, P, e_bits, s1_modN)
 
@@ -502,7 +502,7 @@ class MtaBatch:
             Sp = n2.prod_over_batch(n2.powmod(s_lift, rho_bits))[None]
             Rp = n2.prod_over_batch(n2.powmod(rhs, rho_bits))[None]
             SN = _host_pow_single(Sp, A.N, n2)
-            if bool(_eq_all(n2.mulmod(Mp, SN), Rp)[0]):
+            if bool(_eq_all(n2.mulmod(Mp, SN), Rp)[0]):  # mpcflow: host-ok — single aggregated proof verdict gates the strict fallback
                 return ok
         lhs = n2.mulmod(M, _host_pow_batch(s_lift, A.N, n2))
         return ok & _eq_all(lhs, rhs)
@@ -747,10 +747,10 @@ def _slice_pt(pt, sl: slice):
 def _sig_egress(r, s, rec, ok) -> Dict[str, np.ndarray]:
     """Signature egress: device limbs → host big-endian bytes."""
     return {
-        "r": bn.limbs_to_bytes_le(r, P256, 32).cpu().numpy()[:, ::-1].copy(),
-        "s": bn.limbs_to_bytes_le(s, P256, 32).cpu().numpy()[:, ::-1].copy(),
-        "recovery": rec.to(I32).cpu().numpy(),
-        "ok": ok.cpu().numpy(),
+        "r": bn.limbs_to_bytes_le(r, P256, 32).cpu().numpy()[:, ::-1].copy(),  # mpcflow: host-ok — signature egress
+        "s": bn.limbs_to_bytes_le(s, P256, 32).cpu().numpy()[:, ::-1].copy(),  # mpcflow: host-ok — signature egress
+        "recovery": rec.to(I32).cpu().numpy(),  # mpcflow: host-ok — signature egress
+        "ok": ok.cpu().numpy(),  # mpcflow: host-ok — per-wallet verdicts, egress with the signatures
     }
 
 

@@ -197,10 +197,10 @@ def sharded_sign(mesh: SessionMesh, r64: np.ndarray, lamx: np.ndarray, A_comp: n
     """The full two-phase signing step over the mesh, with the host
     SHA-512 between → ((B, 64) signatures, (B,) ok mask) on the host."""
     r, R_sum, ok_R = commit_phase(mesh, r64)
-    R_h = eb.gather_host(R_sum)
+    R_h = eb.gather_host(R_sum)  # mpcflow: host-ok — R enters the host challenge hash
     c64 = eb.challenge_hashes_host(R_h, A_comp, messages)
     sigs, ok = sign_phase(mesh, r, c64, lamx, R_sum, A_comp)
-    return eb.gather_host(sigs), eb.gather_host(ok) & eb.gather_host(ok_R)
+    return eb.gather_host(sigs), eb.gather_host(ok) & eb.gather_host(ok_R)  # mpcflow: host-ok — signature egress: final (R,s) + verdicts leave device for callers
 
 
 # ---------------------------------------------------------------------------

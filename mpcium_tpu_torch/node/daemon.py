@@ -173,7 +173,7 @@ def run_node(
         from ..faults.transport import FaultyTransport
 
         transport = FaultyTransport(transport, name, fault_plan)
-        # the fault-plan seed is the chaos replay handle; not key material
+        # mpclint: disable=MPL101,MPF701 — fault-plan seed is the chaos replay handle and must be logged; not key material
         log.warn("CHAOS: fault plan installed", node=name,
                  seed=fault_plan.seed, rules=fault_plan.describe())
     if cfg.control_plane == "broker":

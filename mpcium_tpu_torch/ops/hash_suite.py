@@ -221,7 +221,7 @@ def sha512_bytes(data: bytes, device=None) -> bytes:
     ``device`` (None: the GPU, raising when there is none) → 64 digest
     bytes. The per-session EdDSA party routes its RFC 8032 challenge
     here under ``MPCIUM_EDDSA_DEVICE_HASH_SESSION=1``."""
-    return bytes(sha512(as_bytes(data, resolve(device))).cpu().numpy())
+    return bytes(sha512(as_bytes(data, resolve(device))).cpu().numpy())  # mpcflow: host-ok — single-digest egress for the host protocol caller
 
 
 # ---------------------------------------------------------------------------

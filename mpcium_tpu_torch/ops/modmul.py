@@ -96,9 +96,10 @@ def mul_const(x: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
 
 
 def _mul_const64(x: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
-    if x.shape[-1] != T.shape[0] or x.shape[-1] > _MAX_CONST_LIMBS:
+    width = x.shape[-1]  # mpcflow: declassified — the operand's limb count, not its value
+    if width != T.shape[0] or width > _MAX_CONST_LIMBS:
         raise ValueError(
-            f"mul_const: input width {x.shape[-1]} vs Toeplitz {tuple(T.shape)} "
+            f"mul_const: input width {width} vs Toeplitz {tuple(T.shape)} "
             f"(exact up to {_MAX_CONST_LIMBS} limbs)"
         )
     return (x.to(F64) @ T).to(I64)
@@ -107,7 +108,7 @@ def _mul_const64(x: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
 def mul_pair(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Pairwise (batched × batched) product → normalized (n_x+n_y) limbs.
     Float64 block contraction (``bignum.columns``), then one carry."""
-    n_x, n_y = x.shape[-1], y.shape[-1]
+    n_x, n_y = x.shape[-1], y.shape[-1]  # mpcflow: declassified — operand widths, not values
     bx, by = -(-n_x // _BLOCK), -(-n_y // _BLOCK)
     if min(bx, by) > _MAX_BLOCKS:
         raise ValueError(

@@ -348,7 +348,7 @@ def pack_powmod(x, digits: torch.Tensor, c: MulmodConsts, mode: str,
             raise TypeError(f"powmod takes int32 limbs, got {x.dtype}")
         if x.shape[-1] != n:
             raise ValueError(f"powmod: width {x.shape[-1]} != {n}")
-    nwin = digits.shape[-1]
+    nwin = digits.shape[-1]  # mpcflow: declassified — the window count, a width
     tw = None
     if mode == "comb":
         tw = table.words
@@ -408,15 +408,17 @@ def powmod_cuda(x, digits: torch.Tensor, c: MulmodConsts, mode: str,
     dev = c.mont_words.device
     _check_kernel(c, "powmod")
     L = pack_powmod(x, digits, c, mode, table)
-    if mode == "comb" and L.nwin > COMB_MAX_WINDOWS:
-        raise ValueError(f"powmod kernel: {L.nwin} comb windows exceed {COMB_MAX_WINDOWS}")
+    nwin = L.nwin  # mpcflow: declassified — the window count, a width
+    if mode == "comb" and nwin > COMB_MAX_WINDOWS:
+        raise ValueError(f"powmod kernel: {nwin} comb windows exceed {COMB_MAX_WINDOWS}")
     for t in (L.x, L.digits, L.table):
         if t is not None and (t.device != dev or dev.type != "cuda"):
-            raise ValueError(f"powmod kernel: tensor on {t.device}, consts on {dev}")
+            where = t.device  # mpcflow: declassified — a device name
+            raise ValueError(f"powmod kernel: tensor on {where}, consts on {dev}")
     out = torch.empty((L.rows, n), dtype=torch.int32, device=dev)
     if L.rows == 0:
         return out.reshape(L.shape + (n,))
-    rc = launch_powmod(L, c, out)
+    rc = launch_powmod(L, c, out)  # mpcflow: declassified — a CUDA status code
     if rc != 0:
         raise RuntimeError(f"powmod kernel launch failed: CUDA error {rc}")
     key = (mode, n)
@@ -469,7 +471,7 @@ def powmod_plain(x, digits: torch.Tensor, c: MulmodConsts, mode: str,
             acc = sel if acc is None else _mulmod_plain(acc, sel, c)
         return acc
     if mode == "shared":
-        ds = digits.tolist()
+        ds = digits.tolist()  # mpcflow: host-ok — plain twin: runs only on CPU tensors; the card's powmod takes its digits on device
         while ds and not ds[-1]:
             ds.pop()
         if not ds:

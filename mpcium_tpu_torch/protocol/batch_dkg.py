@@ -122,7 +122,7 @@ class _DealingMixin(BatchBlockMixin):
         return f"{self.session_id}:{sender}".encode()
 
     def _ser_scalars(self, x: torch.Tensor) -> str:
-        return bn.limbs_to_bytes_le(x, P256, 32).cpu().numpy().tobytes().hex()
+        return bn.limbs_to_bytes_le(x, P256, 32).cpu().numpy().tobytes().hex()  # mpcflow: host-ok — wire serialization of a scalar block
 
     def _parse_scalars(self, hexstr: str, pid: str) -> torch.Tensor:
         arr = torch.as_tensor(self._parse_block(hexstr, 32, pid), device=self.device)
@@ -146,7 +146,7 @@ class _DealingMixin(BatchBlockMixin):
                     pts, block, commit = _blk_deal_commit(
                         self._coeffs[:, sl], self._blind[sl], bind[sl], self.key_type)
                     tracing.span_sync(self.device)
-                commit_host = yield ("commit_egress", lambda: commit.cpu().numpy())
+                commit_host = yield ("commit_egress", lambda: commit.cpu().numpy())  # mpcflow: host-ok — commitment block leaves device for wire serialization
                 return pts, block, commit_host
 
             return job
@@ -157,8 +157,8 @@ class _DealingMixin(BatchBlockMixin):
         return np.concatenate([o[2] for o in outs], axis=0).tobytes().hex()
 
     def _reveal(self) -> Dict:
-        return {"points": self._block.cpu().numpy().tobytes().hex(),
-                "blind": self._blind.cpu().numpy().tobytes().hex()}
+        return {"points": self._block.cpu().numpy().tobytes().hex(),  # mpcflow: host-ok — wire serialization of the dealer's decommitment
+                "blind": self._blind.cpu().numpy().tobytes().hex()}  # mpcflow: host-ok — wire serialization of the dealer's decommitment
 
     def _decompress_dealer_points(self, block: np.ndarray, pid: str):
         """(B, (t+1)·w) compressed block → points (t+1, B); one bad
@@ -168,7 +168,7 @@ class _DealingMixin(BatchBlockMixin):
         comp = torch.as_tensor(block.reshape(self.B, self.tp1, w).transpose(1, 0, 2).copy(),
                                device=self.device)
         pts, ok = mod.decompress(comp)
-        if not bool(ok.all()):
+        if not bool(ok.all()):  # mpcflow: host-ok — per-dealer verification verdict must gate the protocol on host
             raise ProtocolError("bad commitment point in batch", pid)
         return pts
 
@@ -181,11 +181,11 @@ class _DealingMixin(BatchBlockMixin):
         commit = torch.as_tensor(self._parse_block(commit_hex, 32, pid), device=self.device)
         ok = _blk_commit_check(self._bind_row(pid), blind,
                                torch.as_tensor(block_np, device=self.device), commit)
-        if not bool(ok.all()):
+        if not bool(ok.all()):  # mpcflow: host-ok — per-dealer verification verdict must gate the protocol on host
             raise ProtocolError("dealing decommitment mismatch", pid)
         pts = self._decompress_dealer_points(block_np, pid)
         okv = _blk_vss_check(subshare, pts, _xj_bits([self_x], self.device)[0], self.key_type)
-        if not bool(okv.all()):
+        if not bool(okv.all()):  # mpcflow: host-ok — per-dealer verification verdict must gate the protocol on host
             raise ProtocolError("Feldman VSS share verification failed", pid)
         return pts
 
@@ -327,8 +327,8 @@ class BatchedDKGParty(_DealingMixin, PartyBase):
                 pts = self._verify_dealer(pid, r1[pid]["commit"], r2b[pid], sub, self.self_x)
                 agg_share = ring.addmod(agg_share, sub)
                 agg_pts = mod.add(agg_pts, pts)
-            agg_comp = mod.compress(agg_pts).cpu().numpy()  # (t+1, B, w)
-            share_ints = bn.batch_from_limbs(agg_share, P256)
+            agg_comp = mod.compress(agg_pts).cpu().numpy()  # (t+1, B, w)  # mpcflow: host-ok — public VSS commitments, egress into the share objects
+            share_ints = bn.batch_from_limbs(agg_share, P256)  # mpcflow: host-ok — aggregated shares leave device once, for the returned share objects
         aux: Dict = {}
         if self.key_type == "secp256k1":
             aux = _own_aux(self.pre)
@@ -422,7 +422,8 @@ class BatchedReshareParty(_DealingMixin, PartyBase):
                                 old_xs[self.self_id], order)
         coeffs = _rand_scalars((self.tp1, self.B), order, self.rng)
         coeffs[0] = bn.batch_to_limbs([lam * s.share % order for s in self.old_shares], P256)
-        return [self.broadcast(RS_R1, {"commit": self._deal(coeffs, self._plan)})]
+        commit_hex = self._deal(coeffs, self._plan)  # mpcflow: declassified — hash commitment, protocol-public
+        return [self.broadcast(RS_R1, {"commit": commit_hex})]
 
     def receive(self, msg: RoundMsg) -> List[RoundMsg]:
         if self.done:
@@ -489,7 +490,7 @@ class BatchedReshareParty(_DealingMixin, PartyBase):
                 else:
                     agg_share = ring.addmod(agg_share, sub)
                     agg_pts = mod.add(agg_pts, pts)
-            comp = mod.compress(agg_pts).cpu().numpy()  # (t+1, B, w)
+            comp = mod.compress(agg_pts).cpu().numpy()  # (t+1, B, w)  # mpcflow: host-ok — public VSS commitments, egress into the share objects
         # binding: Σ_i C_i0 must equal the old public keys
         for w in range(self.B):
             if comp[0, w].tobytes() != self.old_pubs[w]:

@@ -112,7 +112,7 @@ def _hex(t: torch.Tensor) -> str:
 
 
 def _ser(x: torch.Tensor, prof: bn.LimbProfile) -> str:
-    return _hex(bn.limbs_to_bytes_le(x, prof, _nb(prof)))
+    return _hex(bn.limbs_to_bytes_le(x, prof, _nb(prof)))  # mpcflow: host-ok — wire serialization
 
 
 class BatchedECDSASigningParty(BatchBlockMixin, PartyBase):
@@ -276,7 +276,7 @@ class BatchedECDSASigningParty(BatchBlockMixin, PartyBase):
             u_bits = gb.rand_bit_tensor(B, RAND_BITS, self.rng, self.device)
             kp = gb._scalar_to_plain(self.own.pmx, self._k)
             self._c_k, _r = self.own.pmx.encrypt(kp, u_bits)
-            out = [self.broadcast(R1B, {"gc": _hex(commit),
+            out = [self.broadcast(R1B, {"gc": _hex(commit),  # mpcflow: host-ok — wire serialization of the hash commitment
                                         "ck": _ser(self._c_k, self.own.pmx.prof_n2)})]
             self._alice_beta: Dict[Tuple[str, str], torch.Tensor] = {}
             for j in self.others():

@@ -144,8 +144,8 @@ def base_ot_receive(
     S_pt = _bcast_pt(S_bytes, KAPPA, device)
     XG = sp.base_mul(bits)
     R = sp.select(torch.as_tensor(delta, device=device).bool(), sp.add(XG, S_pt), XG)
-    msgs = [bytes(r) for r in sp.compress(R).cpu().numpy()]
-    keys = _pt_hash_rows(sp.compress(sp.scalar_mul(bits, S_pt)).cpu().numpy())
+    msgs = [bytes(r) for r in sp.compress(R).cpu().numpy()]  # mpcflow: host-ok — base-OT wire messages (κ=128 rows, once per pair)
+    keys = _pt_hash_rows(sp.compress(sp.scalar_mul(bits, S_pt)).cpu().numpy())  # mpcflow: host-ok — ROT key derivation hashes on host (κ=128 rows, once per pair)
     return delta, keys, msgs
 
 
@@ -161,8 +161,8 @@ def base_ot_sender_keys(
     yR = sp.scalar_mul(y_bits, R)
     yRmS = sp.add(yR, _bcast_pt(hm.secp_compress(yS_neg), KAPPA, device))
     return (
-        _pt_hash_rows(sp.compress(yR).cpu().numpy()),
-        _pt_hash_rows(sp.compress(yRmS).cpu().numpy()),
+        _pt_hash_rows(sp.compress(yR).cpu().numpy()),  # mpcflow: host-ok — ROT key derivation hashes on host (κ=128 rows, once per pair)
+        _pt_hash_rows(sp.compress(yRmS).cpu().numpy()),  # mpcflow: host-ok — ROT key derivation hashes on host (κ=128 rows, once per pair)
     )
 
 
@@ -614,9 +614,9 @@ class OTMtALeg:
             ))
             c_oks.append(_k_consistency(alphas[s], r_bits, B_comp, Beta_comp))
         self.check_verdicts = {
-            "kos": _host(kos_ok),
-            "gilboa": _host(torch.stack(g_oks)),
-            "consistency": _host(torch.stack(c_oks)),
+            "kos": _host(kos_ok),  # mpcflow: host-ok — check verdicts are the abort decision (B bools per extension)
+            "gilboa": _host(torch.stack(g_oks)),  # mpcflow: host-ok — check verdicts are the abort decision (S·B bools per extension)
+            "consistency": _host(torch.stack(c_oks)),  # mpcflow: host-ok — check verdicts are the abort decision (S·B bools per extension)
         }
 
     # -- Alice ---------------------------------------------------------------
@@ -634,14 +634,14 @@ class OTMtALeg:
         U = t0 ^ t1 ^ hs.pack_bits_core(r_bits)[None, :]
         self._alice_state = (t0, r_bits, B, tag)
         self.check_verdicts = None
-        msg = {"U": _host(U), "v": OT_WIRE_VERSION}
+        msg = {"U": _host(U), "v": OT_WIRE_VERSION}  # mpcflow: host-ok — the extension matrix U is wire bytes (κ·M/8 per extension)
         if ot_checks_enabled():
             xbar, tbar = _k_kos_tags(
                 hs.ot_transpose_core(t0), r_bits, U,
                 *_fs_prefixes(tag, b"kos", device=self.device),
             )
-            msg["kos_xbar"] = _host(xbar)
-            msg["kos_tbar"] = _host(tbar)
+            msg["kos_xbar"] = _host(xbar)  # mpcflow: host-ok — KOS tags are wire bytes (B·(κ/8+κ²/8) per extension)
+            msg["kos_tbar"] = _host(tbar)  # mpcflow: host-ok — KOS tags are wire bytes (B·(κ/8+κ²/8) per extension)
         return msg
 
     def alice_round3(self, bob_msg: Dict) -> torch.Tensor:
@@ -691,8 +691,8 @@ class OTMtALeg:
                 ))
         if checks:
             self._store_verdicts(
-                gilboa=_host(torch.stack(g_oks)),
-                consistency=_host(torch.stack(c_oks)),
+                gilboa=_host(torch.stack(g_oks)),  # mpcflow: host-ok — check verdicts are the abort decision (S·B bools per extension)
+                consistency=_host(torch.stack(c_oks)),  # mpcflow: host-ok — check verdicts are the abort decision (S·B bools per extension)
             )
         return alphas
 
@@ -723,6 +723,7 @@ class OTMtALeg:
                 f"{[tuple(b.shape) for b in b_list]}"
             )
         if alice_msg.get("v") != OT_WIRE_VERSION:
+            # mpclint: disable=MPF702 — the formatted value is the public wire-version field (a small int every peer sees), not the PRG-derived tensors that taint the message dict
             raise ValueError(
                 f"OT-MtA wire version mismatch: alice msg carries "
                 f"{alice_msg.get('v')!r}, this party speaks "
@@ -748,7 +749,7 @@ class OTMtALeg:
                 hs.as_bytes(alice_msg["kos_tbar"], dev),
                 *_fs_prefixes(tag, b"kos", device=dev),
             )
-            self._store_verdicts(kos=_host(kos_ok))
+            self._store_verdicts(kos=_host(kos_ok))  # mpcflow: host-ok — check verdicts are the abort decision (B bools per extension)
         # (S, 2, M, 32): pad0, pad1 per set
         pads = hs.pad_hash_core(
             _prefix_rows(self._pad_prefixes(tag, len(b_list)), dev)[:, None, :],
@@ -768,14 +769,14 @@ class OTMtALeg:
             m0 = bn.limbs_to_bytes_le(z_red, P256, 32)
             y0 = pads[s, 0] ^ m0.reshape(M, 32)
             y1 = pads[s, 1] ^ m1.reshape(M, 32)
-            msg = {"y0": _host(y0), "y1": _host(y1), "v": OT_WIRE_VERSION}
+            msg = {"y0": _host(y0), "y1": _host(y1), "v": OT_WIRE_VERSION}  # mpcflow: host-ok — OT payloads, pad-masked on device, are wire bytes (M·64 per set)
             if checks:
                 D_b, B_comp, Beta_comp = _k_gilboa_bob(
                     y0, y1, z_red, b_scalars, *_fs_prefixes(tag, b"gilboa", s, dev),
                 )
-                msg["D"] = _host(D_b)
-                msg["B_pt"] = _host(B_comp)
-                msg["Beta_pt"] = _host(Beta_comp)
+                msg["D"] = _host(D_b)  # mpcflow: host-ok — Gilboa openings are wire bytes (B·98 per set)
+                msg["B_pt"] = _host(B_comp)  # mpcflow: host-ok — Gilboa openings are wire bytes (B·98 per set)
+                msg["Beta_pt"] = _host(Beta_comp)  # mpcflow: host-ok — Gilboa openings are wire bytes (B·98 per set)
             msgs.append(msg)
             betas.append(_neg_sum_mod_q(z_red))
         return msgs, betas
@@ -873,7 +874,7 @@ class OTMtALeg:
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.synchronize(self.device)  # mpcflow: host-ok — timing instrumentation, only when the caller passes timings
 
     def _run_multi_device(self, a, b_list, K, tag, z_raw, timings, transcript, t_total0):
         """Per chunk: the payload math, then :func:`_ot_chunk_device`. The
@@ -908,9 +909,9 @@ class OTMtALeg:
             if transcript is not None:
                 _alphas, U_c, y0s_c, y1s_c = out[:4]
                 transcript.append({
-                    "U": _host(U_c),
-                    "y0": [_host(y) for y in y0s_c],
-                    "y1": [_host(y) for y in y1s_c],
+                    "U": _host(U_c),  # mpcflow: host-ok — transcript-oracle capture (tests only; None in production)
+                    "y0": [_host(y) for y in y0s_c],  # mpcflow: host-ok — transcript-oracle capture (tests only; None in production)
+                    "y1": [_host(y) for y in y1s_c],  # mpcflow: host-ok — transcript-oracle capture (tests only; None in production)
                 })
 
         def cat(i: int, dim: int) -> torch.Tensor:

@@ -203,7 +203,7 @@ class ECDSASigningParty(PartyBase):
                                       init, resp_w, X=self.W[pid])
             except ValueError as e:
                 raise ProtocolError(f"MtA finalize: {e}", pid)
-            delta_i = (delta_i + alpha + self._beta[pid]) % Q  # δᵢ is R3's public reveal
+            delta_i = (delta_i + alpha + self._beta[pid]) % Q  # mpcflow: declassified — δᵢ is the GG18 R3 public reveal
             sigma_i = (sigma_i + mu + self._nu[pid]) % Q
         self._delta_i = delta_i
         self._sigma_i = sigma_i

@@ -136,7 +136,7 @@ class EDDSASigningParty(PartyBase):
         c = _challenge_int(self._R_bytes, self.share.public_key, self.message,
                            self.device) % hm.ED_L
         lam = hm.lagrange_coeff(list(self.sign_xs.values()), self.self_x, hm.ED_L)
-        self._s_i = (self._r + c * lam * self.share.share) % hm.ED_L  # R3's public reveal
+        self._s_i = (self._r + c * lam * self.share.share) % hm.ED_L  # mpcflow: declassified — partial response sᵢ is the R3 broadcast
         self._c = c
         return self.broadcast(R3, {"s": str(self._s_i)})
 

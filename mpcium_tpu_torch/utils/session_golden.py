@@ -88,7 +88,7 @@ def run_session(parties: Dict, snap: Optional[Tuple[str, int]] = None,
                 fresh = remake(pid, parties[pid].rng)
                 fresh.restore(json.loads(json.dumps(state)))
                 parties[pid] = fresh
-    stalled = [pid for pid, p in sorted(parties.items()) if not p.done]
+    stalled = [pid for pid, p in sorted(parties.items()) if not p.done]  # mpcflow: declassified — party ids
     if stalled:
         raise RuntimeError(f"protocol stalled; undone parties: {stalled}")
     return wire, snap_digest

@@ -13,7 +13,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "mpcium_tpu"}
 SCRIPTS = ["torch_chaos_drill.py", "torch_load_soak.py", "torch_chaos_soak_alone.py",
-           "torch_boot_alone.py", "torch_sign_ab.py", "torch_k0_ab.py", "torch_profile_alone.py"]
+           "torch_boot_alone.py", "torch_sign_ab.py", "torch_k0_ab.py", "torch_profile_alone.py",
+           "torch_check_all.py", "torch_mpcflow_budget.py"]
 SOURCES = sorted((ROOT / "mpcium_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
     ROOT / "scripts" / name for name in SCRIPTS]
 
@@ -74,6 +75,15 @@ def test_the_guard_sees_every_port_module_and_every_import_form(tmp_path):
             "perf/claims", "utils/annotations"]
     assert {f"mpcium_tpu_torch/{m}.py" for m in perf} <= names
     assert all((ROOT / "mpcium_tpu" / f"{m}.py").is_file() for m in perf)
+    # the static-analysis gate (the JAX package's analysis/ less MPL4xx and shape/)
+    analysis = ["analysis/__init__", "analysis/core", "analysis/baseline", "analysis/cli",
+                "analysis/taxonomy", "analysis/rules/__init__", "analysis/rules/secret_hygiene",
+                "analysis/rules/hygiene", "analysis/rules/lock_discipline",
+                "analysis/rules/determinism", "analysis/rules/wire_thread",
+                "analysis/flow/__init__", "analysis/flow/symbols", "analysis/flow/callgraph",
+                "analysis/flow/engine", "analysis/flow/taint", "analysis/flow/residency"]
+    assert {f"mpcium_tpu_torch/{m}.py" for m in analysis} <= names
+    assert all((ROOT / "mpcium_tpu" / f"{m}.py").is_file() for m in analysis)
     sample = tmp_path / "sample.py"
     sample.write_text("import jax.numpy as jnp\n"
                       "def f():\n"
