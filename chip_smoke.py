@@ -234,9 +234,10 @@ over an encrypted TCP broker, driven through ``RemoteCluster``):
     line with phase 24's walls beside it.
 
 Soak and chaos (fault plans, the faulty transport and the drills against
-the port's clusters; both phases run in phase 19's child process after
-its lifecycle returns, and the main process prints their lines at the
-end):
+the port's clusters; phase 26 runs last on the goldens' process, phase
+27 last in phase 19's child process, after its lifecycle and phase 33,
+where the fewest other lanes share the host and the card; the main
+process prints their lines at the end):
 
 26. chaos — ``faults.chaos.run_all`` on the card (``device="cuda"``,
     seed CHAOS_SEED, scale 1.0): node-crash, drop-jitter,
@@ -318,14 +319,38 @@ the main process after phase 23, phase 32 on the goldens' process
     themselves and fail against a copy scaled by 1.5. That verdict is
     certain only for samples spread less than 1.5×: a row whose scaled
     copy passes is measured once more (the JAX perfcheck's one retry),
-    and the second measurement must be flagged. It runs last on the
-    process of the golden phases (below), off the main process's path.
+    and the second measurement must be flagged. It runs on the process
+    of the golden phases (below), off the main process's path.
 
-Phases 5, 6, 7, 9, 15 and 16 (the JAX goldens on the card), then phase
-32, run in that order on a spawned process of their own, started after
-phase 3 beside phases 19, 24 and 25; each prints its own line, and the
-main process joins them after phase 31 with a ``goldens`` line
-(``t_start_s``, ``t_end_s``).
+The host pipelined OT extension (``MPCIUM_OT_DEVICE=0``: a worker
+thread over the g++-built ``mpcium_tpu_torch/native/`` library), in
+phase 19's child process between its lifecycle and phase 27:
+
+33. ot_host — (a) one OT-MtA leg at B (fixed base-OT keys, one seeded
+    stream, two payload sets, ``resolve_chunks(B)`` chunks) through the
+    serial three-round composition (the shape's first run, which pays
+    the allocator's warm-up), then the device route and the host route
+    once each: α, β and every verdict
+    byte-equal, and equal to the serial three-round composition; both
+    routes' ``total_s`` and ``checks_s``, the host route's ``host_s``,
+    ``host_wait_s`` and ``device_wait_s``, the native build's seconds
+    and the thread count it resolved. (b) Each hashing stage at the
+    leg's chunk shapes, native against the card (``prg_expand`` /
+    ``prg_expand_core``, ``ot_transpose`` / ``ot_transpose_core``,
+    ``batch_sha256`` / ``pad_hash_core``): byte-equal, each timed
+    (median of five; CUDA events on the card, the host clock for the
+    library). (c) 11 payload sets at B=8, the host route by count: every
+    αₛ + βₛ ≡ a·bₛ (mod q) in python ints, verdicts clean. (d) One GG18
+    OT sign of B dealer wallets (cohorts 2) with ``MPCIUM_OT_DEVICE=0``:
+    every signature verified on the host, blame clean, K0 at 0 launches,
+    ``phases_s`` with r2_mta_ot's host, device and overlap_ratio. The
+    phase sets ``MPCIUM_OT_DEVICE`` only around its own calls.
+
+Phases 5, 6, 7, 9, 15 and 16 (the JAX goldens on the card), then phases
+32 and 26, run in that order on a spawned process of their own, started
+after phase 3 beside phases 19, 24 and 25; each golden phase and phase
+32 print their own lines, and the main process joins them after phase
+31 with a ``goldens`` line (``t_start_s``, ``t_end_s``).
 
 Every host verification runs the port's python-int verifiers over all
 signatures, spread over a pool of worker processes (one per host core).
@@ -344,6 +369,7 @@ Any failure exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import random
@@ -1562,6 +1588,7 @@ CHAOS_SEED = 7  # the JAX package's `make chaos` seed
 
 def _lifecycle_task(B: int, seed: int):
     """Phase 19 in a process of its own (its K0 counters are its own)."""
+    global _POOL
     import torch
 
     from mpcium_tpu_torch.ops import mulmod as K
@@ -1574,19 +1601,20 @@ def _lifecycle_task(B: int, seed: int):
     finally:
         if _POOL is not None:
             _POOL.shutdown()
+            _POOL = None
     rec.update(t_start_s=t0, t_end_s=since_start())
     return rec, k0
 
 
-def start_lifecycle(B: int, seed: int):
+def start_lifecycle(B: int, seed: int, ot_host_B: int):
     """Start phase 19 on a spawned process, niced like phase 24's; it
-    overlaps the phases after the kernel timings. Phases 26 and 27 are
+    overlaps the phases after the kernel timings. Phases 33 and 27 are
     the worker's second task: they run after the lifecycle returns."""
     global _LIFECYCLE_POOL
     _LIFECYCLE_POOL = spawned_pool()
     t_submit = time.perf_counter()
     return (_LIFECYCLE_POOL.submit(_lifecycle_task, B, seed),
-            _LIFECYCLE_POOL.submit(_chaos_soak_task, CHAOS_SEED), t_submit)
+            _LIFECYCLE_POOL.submit(_ot_host_soak_task, ot_host_B, seed), t_submit)
 
 
 def join_lifecycle(future, t_submit: float) -> dict:
@@ -1765,35 +1793,47 @@ def check_soak(rec: dict) -> None:
                              f"{rec['scheduler_devices']}")
 
 
-def _chaos_soak_task(seed: int, dev: str = "cuda") -> dict:
-    """Phases 26 and 27 in phase 19's child, after its lifecycle: cluster
-    logs at WARNING (the drills' faults log by design)."""
+def _ot_host_soak_task(B: int, seed: int, dev: str = "cuda") -> dict:
+    """Phases 33 and 27 in phase 19's child, after its lifecycle: phase 33
+    prints its own line, then the soak runs with cluster logs at WARNING
+    (its faults log by design). The soak comes last, where the fewest
+    other lanes share the host and the card: its followers fall back to
+    the per-session path when a manifest takes longer than twice
+    ``manifest_timeout_s``."""
+    global _POOL
+    from mpcium_tpu_torch.ops import mulmod as K
     from mpcium_tpu_torch.utils import log
 
+    try:
+        run_ot_host(B, seed, K, dev)
+    finally:
+        if _POOL is not None:  # phase 33's host verifiers
+            _POOL.shutdown()
+            _POOL = None
     log.init(level="WARNING")
-    return {"chaos": run_chaos(seed, dev), "soak": run_soak_phase(dev)}
+    return {"soak": run_soak_phase(dev)}
 
 
-def chaos_soak_finish(res: dict, extra: dict) -> None:
+def chaos_soak_finish(chaos: dict, soak: dict, extra: dict) -> None:
     """Print phases 26 and 27 (one line per drill, then each phase's
     line with ``extra``) and hold them to their checks."""
-    chaos = res["chaos"]
     for row in chaos["drills"]:
         emit({"phase": "chaos_drill", **row})
     emit({**chaos, "drills": [r["drill"] for r in chaos["drills"]], **extra})
-    emit({**res["soak"], **extra})
+    emit({**soak, **extra})
     check_chaos(chaos)
-    check_soak(res["soak"])
+    check_soak(soak)
 
 
-def join_chaos_soak(future, t_submit: float) -> None:
-    """Wait for phases 26 and 27 (phase 19's worker), then finish them."""
+def join_chaos_soak(chaos: dict, future, t_submit: float) -> None:
+    """Wait for phase 27 (phase 19's worker, after phase 33), then finish
+    it with phase 26's record (the goldens' process)."""
     t0 = time.perf_counter()
     res = future.result()
     wait_s = time.perf_counter() - t0
     _LIFECYCLE_POOL.shutdown()
-    chaos_soak_finish(res, {"overlapped": True, "join_wait_s": wait_s,
-                            "since_submit_s": time.perf_counter() - t_submit})
+    chaos_soak_finish(chaos, res["soak"], {"overlapped": True, "join_wait_s": wait_s,
+                                           "since_submit_s": time.perf_counter() - t_submit})
 
 
 def run_eddsa_dkg(B: int, seed: int, K, dev: str = "cuda") -> None:
@@ -2907,9 +2947,14 @@ _GOLDEN_POOL = None
 
 
 def _goldens_task() -> dict:
-    """The golden phases and the micro-benches need nothing of the main
-    process; each prints its own line as it ends."""
+    """The golden phases, the micro-benches and the chaos drills need
+    nothing of the main process; each golden phase prints its own line
+    as it ends, the drills' record is returned (the main process prints
+    it beside the soak's). The drills log at WARNING (their faults log by
+    design)."""
     import torch
+
+    from mpcium_tpu_torch.utils import log
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = since_start()
@@ -2920,7 +2965,9 @@ def _goldens_task() -> dict:
     ecdsa_party_golden()
     dkg_golden()
     run_microbench()
-    return {"t_start_s": t_start, "t_end_s": since_start()}
+    log.init(level="WARNING")
+    chaos = run_chaos(CHAOS_SEED)
+    return {"t_start_s": t_start, "t_end_s": since_start(), "chaos": chaos}
 
 
 def start_goldens():
@@ -2929,13 +2976,16 @@ def start_goldens():
     return _GOLDEN_POOL.submit(_goldens_task), time.perf_counter()
 
 
-def join_goldens(future, t_submit: float) -> None:
+def join_goldens(future, t_submit: float) -> dict:
+    """Wait for the goldens' process → phase 26's record."""
     t0 = time.perf_counter()
     res = future.result()
     _GOLDEN_POOL.shutdown()
-    emit({"phase": "goldens", "phases": [5, 6, 7, 9, 15, 16, 32], **res,
+    chaos = res.pop("chaos")
+    emit({"phase": "goldens", "phases": [5, 6, 7, 9, 15, 16, 32, 26], **res,
           "join_wait_s": time.perf_counter() - t0,
           "since_submit_s": time.perf_counter() - t_submit})
+    return chaos
 
 
 # ---------------------------------------------------------------------------
@@ -3112,6 +3162,275 @@ def run_microbench(samples: int = 30, dev: str = "cuda") -> None:
         raise AssertionError(f"the gate misjudged the rows {bad}")
 
 
+# ---------------------------------------------------------------------------
+# phase 33: the host pipelined OT extension (MPCIUM_OT_DEVICE=0) over the
+# native g++ library, against the device route and the card's hashes
+# ---------------------------------------------------------------------------
+
+OT_HOST_SETS = 11  # one more than MAX_PAYLOAD_SETS: the host route by count
+OT_HOST_SMALL_B = 8
+OT_HOST_REPS = 5  # timed calls per hashing stage; the median is printed
+
+
+@contextlib.contextmanager
+def _ot_route(value: str):
+    """MPCIUM_OT_DEVICE set for the calls inside, then restored."""
+    saved = os.environ.get("MPCIUM_OT_DEVICE")
+    os.environ["MPCIUM_OT_DEVICE"] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("MPCIUM_OT_DEVICE", None)
+        else:
+            os.environ["MPCIUM_OT_DEVICE"] = saved
+
+
+def _median_ms(fn, cuda: bool) -> float:
+    """Median ms of OT_HOST_REPS calls after one untimed call: CUDA events
+    around each call on the card, the host clock for host code."""
+    import torch
+
+    fn()
+    if cuda:
+        torch.cuda.synchronize()
+    times = []
+    for _ in range(OT_HOST_REPS):
+        if cuda:
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _ot_host_leg(seed: int, dev: str = "cuda"):
+    """The synthetic leg's fixed base-OT keys with one seeded stream."""
+    from mpcium_tpu_torch.protocol.ecdsa.mta_ot import OTMtALeg
+    from mpcium_tpu_torch.utils import ot_golden as og
+    from mpcium_tpu_torch.utils.rng import DetRng
+
+    _tag, k0, k1, delta = og.synth_base_ot()
+    return OTMtALeg.from_base_ot(b"node0->node1", k0, k1, delta, rng=DetRng(seed), device=dev)
+
+
+def _ot_scalars(B: int, n_sets: int, seed: int):
+    """a and n_sets Bob scalar lists (non-zero: b = 0 makes B = b·G the
+    identity, which the openings reject)."""
+    from mpcium_tpu_torch.core.hostmath import SECP_N as Q
+    from mpcium_tpu_torch.utils.rng import DetRng
+
+    r = DetRng(seed)
+    a = [r.randbelow(Q) for _ in range(B)]
+    return a, [[r.randbelow(Q - 1) + 1 for _ in range(B)] for _ in range(n_sets)]
+
+
+def _ot_limbs(vals, dev: str):
+    import torch
+
+    from mpcium_tpu_torch.core import bignum as bn
+
+    return torch.as_tensor(bn.batch_to_limbs(vals, bn.P256), device=dev)
+
+
+def _leg_run(leg, a, bs, dev: str, timings=None):
+    """run_multi → (shares as host arrays, verdicts as lists)."""
+    out = leg.run_multi(_ot_limbs(a, dev), tuple(_ot_limbs(b, dev) for b in bs),
+                        timings=timings)
+    shares = [(al.cpu().numpy(), be.cpu().numpy()) for al, be in out]
+    return shares, {k: v.tolist() for k, v in sorted(leg.check_verdicts.items())}
+
+
+def _leg_serial(leg, a, bs, dev: str):
+    """The three-round composition (alice_round1 → bob_round2_multi →
+    alice_round3_multi) → shares as host arrays."""
+    msg_a = leg.alice_round1(_ot_limbs(a, dev), 0)
+    msgs_b, betas = leg.bob_round2_multi(tuple(_ot_limbs(b, dev) for b in bs), msg_a, 0)
+    alphas = leg.alice_round3_multi(msgs_b)
+    return [(al.cpu().numpy(), be.cpu().numpy()) for al, be in zip(alphas, betas)]
+
+
+def _same_shares(x, y) -> bool:
+    import numpy as np
+
+    return len(x) == len(y) and all(
+        np.array_equal(a0, a1) and np.array_equal(b0, b1) for (a0, b0), (a1, b1) in zip(x, y))
+
+
+def _reconstructs(shares, a, bs) -> int:
+    """Lanes of every set whose α + β ≡ a·b (mod q), in python ints."""
+    from mpcium_tpu_torch.core import bignum as bn
+    from mpcium_tpu_torch.core.hostmath import SECP_N as Q
+
+    good = 0
+    for (al, be), b in zip(shares, bs):
+        al_i = bn.batch_from_limbs(al, bn.P256)
+        be_i = bn.batch_from_limbs(be, bn.P256)
+        good += sum((x + y) % Q == ai * bi % Q for x, y, ai, bi in zip(al_i, be_i, a, b))
+    return good
+
+
+def _hash_stages(leg, B: int, K: int, dev: str = "cuda") -> dict:
+    """(b): each host hashing stage against its card counterpart at the
+    leg's chunk shapes (Bc = B/K lanes: Bc PRG blocks a seed, a (κ,
+    Bc·32) extension matrix, Bc·256 pad rows), byte for byte, timed."""
+    import numpy as np
+    import torch
+
+    from mpcium_tpu_torch import native
+    from mpcium_tpu_torch.ops import hash_suite as hs
+    from mpcium_tpu_torch.protocol.ecdsa import mta_ot
+
+    Bc = B // K
+    Mc = Bc * mta_ot.NBITS
+    tag = leg._ext_tag(0)
+    blk_off = Bc  # the second chunk's origins
+    seeds = np.stack([leg.k0, leg.k1, leg.keysD])
+    prg_prefix = b"mpcium-ot-prg|" + tag
+    seeds_d = torch.as_tensor(seeds, device=dev)
+    prefix_d = hs.as_bytes(prg_prefix, dev)
+    rows = {}
+
+    def host_prg():
+        return np.stack([native.prg_expand(prg_prefix, k, Bc, blk_off) for k in seeds])
+
+    def dev_prg():
+        return hs.prg_expand_core(seeds_d, prefix_d, Bc, blk_off)
+
+    t0_c = host_prg()[0]
+    packed_d = torch.as_tensor(t0_c, device=dev)
+    pad_prefix = leg._pad_prefixes(tag, 1)[0]
+    t_rows = native.ot_transpose(t0_c)
+    idx = np.arange(blk_off * mta_ot.NBITS, blk_off * mta_ot.NBITS + Mc, dtype="<u4")
+    buf = np.concatenate([t_rows, idx.view(np.uint8).reshape(Mc, 4)], axis=1)
+    rows_d = torch.as_tensor(t_rows, device=dev)
+    idx_d = hs.le32_bytes(blk_off * mta_ot.NBITS + torch.arange(Mc, device=dev))
+    pad_prefix_d = hs.as_bytes(pad_prefix, dev)
+    stages = {
+        "prg_expand": (host_prg, dev_prg, {"seeds": 3 * mta_ot.KAPPA, "blocks": Bc}),
+        "ot_transpose": (lambda: native.ot_transpose(t0_c),
+                         lambda: hs.ot_transpose_core(packed_d), {"matrix": [mta_ot.KAPPA, Bc * 32]}),
+        "pad_hash": (lambda: native.batch_sha256(pad_prefix, buf),
+                     lambda: hs.pad_hash_core(pad_prefix_d, rows_d, idx_d), {"rows": Mc}),
+    }
+    for name, (host_fn, dev_fn, shape) in stages.items():
+        equal = bool(np.array_equal(host_fn(), dev_fn().cpu().numpy()))
+        rows[name] = {**shape, "equal": equal, "native_ms": _median_ms(host_fn, False),
+                      "card_ms": _median_ms(dev_fn, dev == "cuda")}
+    return rows
+
+
+def run_ot_host(B: int, seed: int, K, dev: str = "cuda") -> None:
+    """Phase 33: the host pipelined OT extension on the card's machine.
+    (a) one leg at B (two payload sets, resolve_chunks(B) chunks) on the
+    device route and on the host route, byte for byte, and equal to the
+    serial three-round composition; (b) each native hashing stage against
+    the card's; (c) OT_HOST_SETS payload sets at B=OT_HOST_SMALL_B (the
+    host route by count) reconstructing a·b; (d) one GG18 OT sign of B
+    wallets (cohorts 2) under MPCIUM_OT_DEVICE=0: every signature
+    verified on the host, blame clean, no K0 launch."""
+    import numpy as np
+
+    from mpcium_tpu_torch import native
+    from mpcium_tpu_torch.engine import gg18_batch as gb
+    from mpcium_tpu_torch.protocol.ecdsa.mta_ot import resolve_chunks
+    from mpcium_tpu_torch.utils.rng import SeededStream
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    native.build()
+    native_build_s = time.perf_counter() - t0
+    chunks = resolve_chunks(B)
+
+    # (a) one leg: the serial three-round composition first (the first run
+    # of a shape pays the allocator's warm-up), then the device route and
+    # the host route, each from the same keys and stream
+    a, bs = _ot_scalars(B, 2, seed + 31)
+    serial = _leg_serial(_ot_host_leg(seed + 32, dev), a, bs, dev)
+    runs = {}
+    for route in ("device", "host"):
+        leg, tm = _ot_host_leg(seed + 32, dev), {}
+        with _ot_route("0" if route == "host" else "1"):
+            runs[route] = _leg_run(leg, a, bs, dev, tm) + (tm,)
+    dev_shares, dev_verdicts, _ = runs["device"]
+    host_shares, host_verdicts, _ = runs["host"]
+    leg_ok = {
+        "host_equals_device": _same_shares(host_shares, dev_shares),
+        "verdicts_equal": host_verdicts == dev_verdicts,
+        "verdicts_clean": all(all(np.ravel(v)) for v in host_verdicts.values()),
+        "host_equals_serial": _same_shares(host_shares, serial),
+        "reconstructs": _reconstructs(host_shares, a, bs) == 2 * B,
+    }
+
+    # (b) the hashing stages at the leg's chunk shapes
+    stages = _hash_stages(_ot_host_leg(seed + 32, dev), B, chunks, dev)
+
+    # (c) OT_HOST_SETS payload sets take the host route by count
+    a8, bs8 = _ot_scalars(OT_HOST_SMALL_B, OT_HOST_SETS, seed + 33)
+    many, many_verdicts = _leg_run(_ot_host_leg(seed + 34, dev), a8, bs8, dev)
+    many_ok = {"reconstructs": _reconstructs(many, a8, bs8) == OT_HOST_SETS * OT_HOST_SMALL_B,
+               "verdicts_clean": all(all(np.ravel(v)) for v in many_verdicts.values())}
+
+    # (d) a GG18 OT sign through the host route
+    t0 = time.perf_counter()
+    shares = gb.dealer_keygen_secp_batch(B, ["node0", "node1", "node2"], threshold=1,
+                                         rng=SeededStream(seed + 35))
+    keygen_s = time.perf_counter() - t0
+    digests = np.random.default_rng(seed + 36).integers(0, 256, (B, 32), dtype=np.uint8)
+    phases: dict = {}
+    with _ot_route("0"):
+        t0 = time.perf_counter()
+        signer = gb.GG18BatchCoSigners(["node0", "node1"], [shares[0], shares[1]],
+                                       rng=SeededStream(seed + 37), mta_impl="ot", device=dev)
+        _sync(dev)
+        setup_s = time.perf_counter() - t0
+        K.reset_counters()
+        t0 = time.perf_counter()
+        out = signer.sign(digests, phase_times=phases, cohorts=COHORTS)
+        _sync(dev)
+        sign_s = time.perf_counter() - t0
+        k0 = (K.launches + sum(K.powmod_launches_by_mode_width.values()), K.plain_calls)
+    blame = [leg_.check_blame() for leg_ in signer.ot_legs.values()]
+    blame_clean = all(v is not None and not any(v) for v in blame)
+    t0 = time.perf_counter()
+    verified = verify_ecdsa([x.public_key for x in shares[0]], digests, out["r"], out["s"])
+    verify_s = time.perf_counter() - t0
+
+    emit({
+        "phase": "ot_host", "B": B, "chunks": chunks, "seed": seed,
+        "native_build_s": native_build_s, "native_threads": native.threads(),
+        "leg": {**leg_ok, "sets": 2, "order": "serial, device, host",
+                **{f"{route}_{key}": runs[route][2][key]
+                   for route in ("device", "host") for key in ("total_s", "checks_s")},
+                **{key: runs["host"][2][key]
+                   for key in ("host_s", "host_wait_s", "device_wait_s")}},
+        "stages": stages,
+        "many_sets": {**many_ok, "sets": OT_HOST_SETS, "B": OT_HOST_SMALL_B},
+        "sign": {"cohorts": COHORTS, "keygen_s": keygen_s, "setup_s": setup_s, "sign_s": sign_s,
+                 "phases_s": phases, "verified": verified,
+                 "ok_all": bool(out["ok"].all()), "blame_clean": blame_clean,
+                 "k0_launches": k0[0], "plain_calls": k0[1], "host_verify_s": verify_s},
+        "s": time.perf_counter() - t_phase,
+    })
+    bad = [k for k, v in leg_ok.items() if not v]
+    bad += [f"stage {k}" for k, v in stages.items() if not v["equal"]]
+    bad += [f"{OT_HOST_SETS} sets: {k}" for k, v in many_ok.items() if not v]
+    if not out["ok"].all() or verified != B:
+        bad.append(f"sign: ok={int(out['ok'].sum())}/{B} verified={verified}/{B}")
+    if not blame_clean:
+        bad.append(f"sign: an honest leg was blamed: {blame}")
+    if k0 != (0, 0):
+        bad.append(f"sign: K0 or its plain versions ran: {k0}")
+    if bad:
+        raise AssertionError(f"phase 33 ot_host: {bad}")
+
+
 def main() -> int:
     t_script = time.perf_counter()
     os.environ[T0_ENV] = repr(time.monotonic())
@@ -3155,7 +3474,7 @@ def main() -> int:
     widths = kernel_vs_plain(1024, args.seed, pre, K, mm, bn)
     pm = powmod_vs_plain(1024, args.seed, pre, K, mm, bn)
     # phases 19, 24 and 25 overlap the phases from here on (after the kernel timings)
-    life_future, chaos_future, t_life = start_lifecycle(LIFECYCLE_B, args.seed)
+    life_future, soak_future, t_life = start_lifecycle(LIFECYCLE_B, args.seed, args.batch)
     serving_future, t_serving = start_serving(SERVING_W, args.seed)
     deploy_future, boot_future, t_deploy = start_deployment(DEPLOY_W, args.seed)
     golden_future, t_golden = start_goldens()
@@ -3182,12 +3501,12 @@ def main() -> int:
     run_session_batch_sign(session, args.seed, K)
     run_profile(signer, shares, args.batch, args.seed, K, measured)
     run_ot_profile(ot_signer, shares, args.batch, args.seed)
-    join_goldens(golden_future, t_golden)
+    chaos = join_goldens(golden_future, t_golden)
     life = join_lifecycle(life_future, t_life)
     serving = join_serving(serving_future, t_serving)
     join_deployment(deploy_future, t_deploy, serving)
     warm_k0 = join_boot(boot_future, t_deploy)
-    join_chaos_soak(chaos_future, t_life)
+    join_chaos_soak(chaos, soak_future, t_life)
     emit({"phase": "wall", "script_s": time.perf_counter() - t_script,
           "note": "from the start of main() to here"})
 

@@ -798,7 +798,6 @@ class GG18BatchCoSigners:
         self.ctx = self.mta = self.ot_legs = None
         self.ot_timings: Optional[Dict[str, float]] = None
         if self.mta_impl == "ot":
-            mta_ot.require_device_path()
             # one leg per ordered pair, base OTs drawn in pair order
             self.ot_legs = {
                 (a, b): mta_ot.OTMtALeg(
@@ -907,8 +906,8 @@ class GG18BatchCoSigners:
             pt.mark("r1_commit_encrypt_rangeproof", *Gamma_comp)
             alpha_shares, beta_shares = self._mta_ot(k, gamma, pt.on)
             # the OT phase's host/device split rides the span as attrs (and
-            # the dict as r2_mta_ot_* keys), as in the JAX engine; the
-            # device path has no host worker, so host and device read 0
+            # the dict as r2_mta_ot_* keys), as in the JAX engine; on the
+            # device route no host worker runs, so host and device read 0
             ot_attrs = {}
             if self.ot_timings:
                 host_s = self.ot_timings.get("host_s", 0.0)

@@ -27,7 +27,7 @@ _REPO = os.path.dirname(os.path.dirname(_HERE))
 # the env knobs that change what a perf number means; anything else
 # (paths, passwords) is noise the fingerprint must not leak
 _KNOB_PREFIXES = (
-    "MPCIUM_MTA", "MPCIUM_OT_", "MPCIUM_PIPELINE_COHORTS",
+    "MPCIUM_MTA", "MPCIUM_OT_", "MPCIUM_NATIVE_THREADS", "MPCIUM_PIPELINE_COHORTS",
     "MPCIUM_BATCH_VERIFY", "MPCIUM_EDDSA_DEVICE_HASH",
     "MPCIUM_PAILLIER_RAND_BITS", "MPCIUM_PROFILE", "CUDA_VISIBLE_DEVICES",
 )

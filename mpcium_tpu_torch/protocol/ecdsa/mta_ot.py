@@ -26,9 +26,14 @@ composition and, when asked, the ``transcript`` capture. Wire bytes,
 shares and verdicts are the JAX package's byte for byte
 (``OT_WIRE_VERSION`` 3).
 
-Not ported: the JAX package's host pipelined extension
-(``MPCIUM_OT_DEVICE=0``: a worker thread over the C++ ``native``
-library). With that setting the port raises ``NotImplementedError``.
+``run_multi`` has a second route, the host pipelined extension, taken
+under ``MPCIUM_OT_DEVICE=0`` or for more than ``MAX_PAYLOAD_SETS``
+payload sets: the payload math is queued on the device for every chunk,
+one ``ot-host`` worker thread runs each chunk's PRG expansion, transpose
+and pad hashing through the C++ :mod:`mpcium_tpu_torch.native` library
+(which drops the GIL), and the main thread masks and selects as the
+chunks arrive. The checks run on the device on either route, and the
+bytes are the same.
 """
 from __future__ import annotations
 
@@ -36,12 +41,15 @@ import functools
 import hashlib
 import os
 import secrets as _secrets
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ... import native
 from ...core import bignum as bn
 from ...core import hostmath as hm
 from ...core import secp256k1 as sp
@@ -62,6 +70,21 @@ CHECK_CONSISTENCY = "consistency"  # verifier Alice; failure blames Bob
 
 MAX_PAYLOAD_SETS = 10  # `|s10` would widen the pad prefix by one byte
 
+# The host route's double buffer is one worker: run_multi queues every
+# chunk's host stage on it in order, and the main thread drains the
+# chunks while the worker expands the next (the native calls drop the
+# GIL, so the two overlap).
+_HOST_POOL: Optional[ThreadPoolExecutor] = None
+_POOL_LOCK = threading.Lock()
+
+
+def _host_pool() -> ThreadPoolExecutor:
+    global _HOST_POOL
+    with _POOL_LOCK:
+        if _HOST_POOL is None:
+            _HOST_POOL = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ot-host")
+        return _HOST_POOL
+
 
 def resolve_chunks(B: int, chunks: Optional[int] = None) -> int:
     """Extension chunk count: explicit argument wins, then
@@ -78,16 +101,11 @@ def resolve_chunks(B: int, chunks: Optional[int] = None) -> int:
     return chunks
 
 
-def require_device_path() -> None:
-    """``MPCIUM_OT_DEVICE=0`` selects the JAX package's host pipelined
-    extension, which the port does not have: raise rather than run the
-    device path under a setting that asked for another one."""
-    if os.environ.get("MPCIUM_OT_DEVICE", "1") == "0":
-        raise NotImplementedError(
-            "MPCIUM_OT_DEVICE=0 selects the host pipelined OT extension "
-            "(worker thread over the native batch_hash library), which is "
-            "not ported to PyTorch; unset it to run the device path"
-        )
+def device_path_enabled() -> bool:
+    """MPCIUM_OT_DEVICE (read per call, default on) selects
+    ``run_multi``'s device extension; ``0`` selects the host pipelined
+    one. Both give the same bytes."""
+    return os.environ.get("MPCIUM_OT_DEVICE", "1") != "0"
 
 
 def ot_checks_enabled() -> bool:
@@ -472,6 +490,27 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def _prg_host(seeds: np.ndarray, tag: bytes, nblk: int, blk_off: int) -> np.ndarray:
+    """The host route's keystream: (n, 32) seeds → (n, nblk·32), blocks
+    [blk_off, blk_off + nblk) of each seed's stream."""
+    return native.prg_expand(b"mpcium-ot-prg|" + tag, seeds, nblk, blk_off)
+
+
+def _derive_pads_multi(prefixes, packed: np.ndarray, M: int, delta=None, m_off: int = 0):
+    """Per-OT pads from the packed (κ, M/8) extension matrix, for several
+    payload-set domains: pad_s[j] = H(prefix_s ‖ column j re-packed ‖
+    le32(m_off + j)), plus the Δ-offset variant per set when ``delta``
+    (packed κ/8) is given. The transpose runs once for every set.
+    → [pad_s] or [(pad0_s, pad1_s)] in prefix order."""
+    rows = native.ot_transpose(packed)
+    idx = np.arange(m_off, m_off + M, dtype="<u4").view(np.uint8).reshape(M, 4)
+    buf = np.concatenate([rows, idx], axis=1)
+    if delta is None:
+        return [native.batch_sha256(p, buf) for p in prefixes]
+    bufd = np.concatenate([rows ^ delta[None, :], idx], axis=1)
+    return [(native.batch_sha256(p, buf), native.batch_sha256(p, bufd)) for p in prefixes]
+
+
 # ---------------------------------------------------------------------------
 # the per-ordered-pair MtA instance
 # ---------------------------------------------------------------------------
@@ -513,6 +552,7 @@ class OTMtALeg:
 
     def _init_derived(self) -> None:
         self.delta_packed = _pack(self.delta)  # (16,)
+        self._delta_rows = np.nonzero(self.delta)[0]
         self._tamper = None
         self.check_verdicts = None
         self._dev_state = None
@@ -618,6 +658,38 @@ class OTMtALeg:
             "gilboa": _host(torch.stack(g_oks)),  # mpcflow: host-ok — check verdicts are the abort decision (S·B bools per extension)
             "consistency": _host(torch.stack(c_oks)),  # mpcflow: host-ok — check verdicts are the abort decision (S·B bools per extension)
         }
+
+    # -- the host route's chunk stages ----------------------------------------
+    #
+    # Each covers lanes [blk_off, blk_off + Bc): a contiguous block range
+    # of every PRG stream and a contiguous column range of the extension
+    # matrix, so the chunks give the bytes of the full-width rounds.
+
+    def _ext_alice_chunk(self, tag: bytes, r_packed_c: np.ndarray, blk_off: int, Bc: int):
+        """Alice's half for one chunk → (t0_c, U_c), each (κ, Bc·32); U is
+        assembled in place in the t1 buffer."""
+        t0 = _prg_host(self.k0, tag, Bc, blk_off)
+        t1 = _prg_host(self.k1, tag, Bc, blk_off)
+        native.xor_rows(t1, t0)          # t1 ← t0 ^ t1
+        native.xor_rows(t1, r_packed_c)  # ... ^ r (row broadcast)
+        return t0, t1
+
+    def _ext_bob_chunk(self, tag: bytes, U_c: np.ndarray, blk_off: int, Bc: int) -> np.ndarray:
+        """Bob's half for one chunk: U folded into the Δ=1 rows of his
+        keystream → Q_c (κ, Bc·32), built in place."""
+        tD = _prg_host(self.keysD, tag, Bc, blk_off)
+        for r in self._delta_rows:
+            tD[r] ^= U_c[r]
+        return tD
+
+    def _pads_chunk(self, tag, n_sets, t0_c, Qm_c, m_off, m_count):
+        """Transpose and pad hashing for one chunk, both roles, every
+        payload set → (padsA [pad_s], padsB [(pad0_s, pad1_s)])."""
+        prefixes = self._pad_prefixes(tag, n_sets)
+        padsA = _derive_pads_multi(prefixes, t0_c, m_count, m_off=m_off)
+        padsB = _derive_pads_multi(prefixes, Qm_c, m_count, delta=self.delta_packed,
+                                   m_off=m_off)
+        return padsA, padsB
 
     # -- Alice ---------------------------------------------------------------
 
@@ -801,28 +873,29 @@ class OTMtALeg:
         extension) → [(alpha_s, beta_s)] with alpha_s + beta_s ≡ a·b_s
         (mod q) per lane.
 
-        The extension runs on the device in ``chunks`` sub-batches
-        (:func:`resolve_chunks`), each one :func:`_ot_chunk_device`, then
-        the checks run once over the whole batch. Chunk boundaries are
-        PRG-block and OT-index origins, so every chunk count gives the
-        wire bytes of the three-round composition.
+        Two routes with the bytes of the three-round composition (the z
+        draw order, PRG block schedule and pad domains are shared), each
+        in ``chunks`` sub-batches (:func:`resolve_chunks`) whose
+        boundaries are PRG-block and OT-index origins, the checks run
+        once over the whole batch on the device:
 
-        ``timings`` (optional dict) accumulates total_s and checks_s
-        (the device is synchronized at the boundaries when given).
-        ``transcript`` (optional list) receives one {"U", "y0", "y1"}
-        dict of host arrays per chunk — the wire bytes."""
+        * device (default): each chunk is one :func:`_ot_chunk_device`;
+          the host sees no extension matrix, pad or choice bit.
+        * host (``MPCIUM_OT_DEVICE=0``, or more than ``MAX_PAYLOAD_SETS``
+          sets): :meth:`_run_multi_host`, the pipelined extension over
+          the native library.
+
+        ``timings`` (optional dict) accumulates total_s and checks_s, and
+        on the host route host_s (the worker's busy time), host_wait_s and
+        device_wait_s (the main thread's waits); the device is
+        synchronized at the boundaries when it is given. ``transcript``
+        (optional list; device route) receives one {"U", "y0", "y1"} dict
+        of host arrays per chunk — the wire bytes."""
         b_list = tuple(b_list)
         if any(b.shape != b_list[0].shape for b in b_list):
             raise ValueError(
                 "run_multi: payload sets disagree on batch shape: "
                 f"{[tuple(b.shape) for b in b_list]}"
-            )
-        require_device_path()
-        if len(b_list) > MAX_PAYLOAD_SETS:
-            raise NotImplementedError(
-                f"run_multi: {len(b_list)} payload sets; more than "
-                f"{MAX_PAYLOAD_SETS} take the JAX package's host path, "
-                "which is not ported"
             )
         self.check_verdicts = None  # per invocation; the check pass refills
         if self._tamper is not None:
@@ -836,19 +909,22 @@ class OTMtALeg:
         t_total0 = time.perf_counter()
         t_span0 = tracing.now_ns()
         # z randomness: one draw per payload set, in the serial order —
-        # the only rng use, so chunking cannot move the stream
+        # the only rng use, so neither chunking nor the worker can move
+        # the stream
         z_raw = [
             np.frombuffer(self.rng.token_bytes(M * 32), np.uint8).reshape(B, NBITS, 32)
             for _ in b_list
         ]
-        out = self._run_multi_device(a, b_list, K, tag, z_raw, timings, transcript, t_total0)
-        # the extension's span, as the JAX leg records it on its device path
-        tracing.emit(
-            "phase:ot_extension", t_span0, tracing.now_ns(),
-            node="engine", tid=f"ot:B{B}",
-            host_wait_s=0.0, device_wait_s=0.0,
-            chunks=K, sets=len(b_list), device=True, checks=ot_checks_enabled(),
-        )
+        if device_path_enabled() and len(b_list) <= MAX_PAYLOAD_SETS:
+            out = self._run_multi_device(a, b_list, K, tag, z_raw, timings, transcript,
+                                         t_total0)
+            attrs = dict(host_wait_s=0.0, device_wait_s=0.0, chunks=K, sets=len(b_list),
+                         device=True, checks=ot_checks_enabled())
+        else:
+            out, attrs = self._run_multi_host(a, b_list, K, tag, z_raw, timings, t_total0)
+        # the extension's span, with the JAX leg's attributes for its route
+        tracing.emit("phase:ot_extension", t_span0, tracing.now_ns(),
+                     node="engine", tid=f"ot:B{B}", **attrs)
         return out
 
     def _run_multi_tampered(self, a, b_list):
@@ -871,6 +947,109 @@ class OTMtALeg:
                 )
         alphas = self.alice_round3_multi(msgs_b)
         return list(zip(alphas, betas))
+
+    def _run_multi_host(self, a, b_list, K, tag, z_raw, timings, t_total0):
+        """The host pipelined extension (see run_multi) → (shares, span
+        attributes). The choice bits come to the host first (they drive
+        the host stage); then the payload math of every chunk and set is
+        queued on the device and every chunk's host stage is submitted to
+        the ``ot-host`` worker, before the main thread waits on either."""
+        dev = self.device
+        B = a.shape[0]
+        M = B * NBITS
+        Bc = B // K
+        Mc = Bc * NBITS
+        n_sets = len(b_list)
+        b_list = [b.to(dev) for b in b_list]
+        r_bits_d = _bits_256(a.to(dev)).to(torch.uint8).reshape(M)
+        r_bits = _host(r_bits_d)  # mpcflow: host-ok — host/native path (MPCIUM_OT_DEVICE=0): choice bits drive the host IKNP stage; the default device path never pulls them
+        r_packed = _pack(r_bits)
+
+        # device stage 1 (queued, nothing waited on): the payloads per
+        # (chunk, set) and Bob's shares
+        z_red = [_reduce_bytes(hs.as_bytes(z, dev)) for z in z_raw]
+        payloads = [
+            [(bn.limbs_to_bytes_le(z[c * Bc:(c + 1) * Bc], P256, 32),
+              _m1_payloads(z[c * Bc:(c + 1) * Bc], _pow2_ladder(b[c * Bc:(c + 1) * Bc])))
+             for z, b in zip(z_red, b_list)]
+            for c in range(K)
+        ]
+        betas = [_neg_sum_mod_q(z) for z in z_red]
+        checks = ot_checks_enabled()
+
+        def host_stage(c: int):
+            t_busy = time.perf_counter()
+            blk_off = c * Bc
+            t0_c, U_c = self._ext_alice_chunk(
+                tag, r_packed[blk_off * 32:(blk_off + Bc) * 32], blk_off, Bc
+            )
+            Qm_c = self._ext_bob_chunk(tag, U_c, blk_off, Bc)
+            pads = self._pads_chunk(tag, n_sets, t0_c, Qm_c, c * Mc, Mc)
+            if timings is not None:
+                timings["host_s"] = timings.get("host_s", 0.0) + time.perf_counter() - t_busy
+            return pads, t0_c, U_c, Qm_c
+
+        # the double buffer: every chunk's host stage is queued before the
+        # first wait on a device tensor
+        futs = [_host_pool().submit(host_stage, c) for c in range(K)]
+
+        host_wait = device_wait = 0.0
+        alpha_pieces: List[List[torch.Tensor]] = [[] for _ in range(n_sets)]
+        t0_cs, U_cs, Qm_cs = [], [], []  # per-chunk wire tensors, for the checks
+        y_cs = [([], [], []) for _ in range(n_sets)]  # (y0, y1, sel) per set
+        for c in range(K):
+            t_w = time.perf_counter()
+            (padsA, padsB), t0_c, U_c, Qm_c = futs[c].result()
+            host_wait += time.perf_counter() - t_w
+            if checks:
+                t0_cs.append(t0_c)
+                U_cs.append(U_c)
+                Qm_cs.append(Qm_c)
+            sel_bits = r_bits[c * Mc:(c + 1) * Mc, None].astype(bool)
+            for s, (m0_d, m1_d) in enumerate(payloads[c]):
+                t_w = time.perf_counter()
+                m0 = _host(m0_d).reshape(Mc, 32)  # mpcflow: host-ok — host/native path (MPCIUM_OT_DEVICE=0): payloads meet the host-derived pads here; the default device path masks on device
+                m1 = _host(m1_d).reshape(Mc, 32)  # mpcflow: host-ok — host/native path (MPCIUM_OT_DEVICE=0): payloads meet the host-derived pads here; the default device path masks on device
+                device_wait += time.perf_counter() - t_w
+                pad0, pad1 = padsB[s]
+                # mask into the pads (the worker's fresh buffers, dead after)
+                y0 = native.xor_rows(pad0, m0)
+                y1 = native.xor_rows(pad1, m1)
+                sel = np.where(sel_bits, y1, y0)
+                native.xor_rows(sel, padsA[s])
+                alpha_pieces[s].append(
+                    _sum_mod_q(_reduce_bytes(hs.as_bytes(sel.reshape(Bc, NBITS, 32), dev)))
+                )
+                if checks:
+                    for acc, arr in zip(y_cs[s], (y0, y1, sel)):
+                        acc.append(arr)
+
+        alphas = [torch.cat(p) for p in alpha_pieces]
+        checks_s = 0.0
+        if checks:
+            if timings is not None:
+                self._sync()
+            t_chk = time.perf_counter()
+
+            def up(arrs, axis=0):
+                return hs.as_bytes(np.concatenate(arrs, axis=axis), dev)
+
+            self._verify_inprocess(
+                tag, hs.ot_transpose_core(up(t0_cs, 1)), hs.ot_transpose_core(up(Qm_cs, 1)),
+                up(U_cs, 1), r_bits_d, b_list, z_red,
+                [up(ys[0]) for ys in y_cs], [up(ys[1]) for ys in y_cs],
+                [up(ys[2]) for ys in y_cs], alphas,
+            )
+            checks_s = time.perf_counter() - t_chk
+        if timings is not None:
+            self._sync()
+            for key, v in (("checks_s", checks_s), ("host_wait_s", host_wait),
+                           ("device_wait_s", device_wait),
+                           ("total_s", time.perf_counter() - t_total0)):
+                timings[key] = timings.get(key, 0.0) + v
+        attrs = dict(host_wait_s=round(host_wait, 6), device_wait_s=round(device_wait, 6),
+                     chunks=K, sets=n_sets, checks=checks)
+        return list(zip(alphas, betas)), attrs
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

@@ -221,7 +221,7 @@ def test_tampered_bob_proof_is_attributed_to_its_session():
     assert mta.alice_check_bob(c_a, Tb, bad, e_b, rng=rng).tolist() == [True, False]
 
 
-def test_entry_points_need_an_explicit_cpu_device_without_a_gpu(monkeypatch):
+def test_entry_points_need_an_explicit_cpu_device_without_a_gpu():
     from mpcium_tpu_torch.cluster import load_test_preparams
     from mpcium_tpu_torch.engine import gg18_batch as gb
     from mpcium_tpu_torch.utils.rng import SeededStream
@@ -231,10 +231,6 @@ def test_entry_points_need_an_explicit_cpu_device_without_a_gpu(monkeypatch):
     pre = load_test_preparams(1024)
     with pytest.raises(ValueError, match="expected 'paillier' or 'ot'"):
         gb.GG18BatchCoSigners(QUORUM, pair, pre, mta_impl="dkls", device="cpu")
-    with monkeypatch.context() as mp:
-        mp.setenv("MPCIUM_OT_DEVICE", "0")
-        with pytest.raises(NotImplementedError, match="host pipelined"):
-            gb.GG18BatchCoSigners(QUORUM, pair, mta_impl="ot", device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
     with pytest.raises(RuntimeError, match="device='cpu'"):

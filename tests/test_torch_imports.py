@@ -14,7 +14,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "mpcium_tpu"}
 SCRIPTS = ["torch_chaos_drill.py", "torch_load_soak.py", "torch_chaos_soak_alone.py",
            "torch_boot_alone.py", "torch_sign_ab.py", "torch_k0_ab.py", "torch_profile_alone.py",
-           "torch_check_all.py", "torch_mpcflow_budget.py"]
+           "torch_check_all.py", "torch_mpcflow_budget.py", "torch_ot_host_alone.py"]
 SOURCES = sorted((ROOT / "mpcium_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
     ROOT / "scripts" / name for name in SCRIPTS]
 
@@ -84,6 +84,14 @@ def test_the_guard_sees_every_port_module_and_every_import_form(tmp_path):
                 "analysis/flow/engine", "analysis/flow/taint", "analysis/flow/residency"]
     assert {f"mpcium_tpu_torch/{m}.py" for m in analysis} <= names
     assert all((ROOT / "mpcium_tpu" / f"{m}.py").is_file() for m in analysis)
+    # the native host library: the JAX package's module of the same path,
+    # built from the port's own copy of the C++ source
+    assert {"mpcium_tpu_torch/native/__init__.py", "mpcium_tpu_torch/native/plain.py"} <= names
+    assert (ROOT / "mpcium_tpu" / "native" / "__init__.py").is_file()
+    assert (ROOT / "mpcium_tpu_torch" / "native" / "batch_hash.cpp").is_file()
+    from mpcium_tpu_torch import native
+
+    assert native.SRC == ROOT / "mpcium_tpu_torch" / "native" / "batch_hash.cpp"
     sample = tmp_path / "sample.py"
     sample.write_text("import jax.numpy as jnp\n"
                       "def f():\n"

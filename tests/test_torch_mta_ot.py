@@ -311,15 +311,6 @@ def test_version_mismatch_and_unchecked_peer_fail_loudly(inputs):
         ])
 
 
-def test_host_pipelined_path_is_refused(monkeypatch, inputs):
-    a, g, _w = inputs
-    monkeypatch.setenv("MPCIUM_OT_DEVICE", "0")
-    leg = _port_leg()
-    with pytest.raises(NotImplementedError, match="host pipelined"):
-        leg.run_multi(_port_limbs(a), (_port_limbs(g),))
-    assert leg.ctr == 0
-
-
 def test_base_ot_keys_agree_only_on_the_choice_bit():
     """Chou–Orlandi on the port's ladders: Bob's key is k^{Δ_j}_j, never
     the other one, and the wire points and keys equal python-int

@@ -368,6 +368,19 @@ def test_the_port_stamp_groups_by_platform():
     assert envfp.fingerprint_key(None, platform_hint="gpu") == "gpu/unstamped"
 
 
+def test_the_native_thread_pin_is_a_knob_as_in_jax(monkeypatch):
+    """A host-route time depends on MPCIUM_NATIVE_THREADS, so the stamp
+    carries it, as the JAX package's does; paths and secrets stay out."""
+    monkeypatch.setenv("MPCIUM_NATIVE_THREADS", "3")
+    monkeypatch.setenv("MPCIUM_OT_DEVICE", "0")
+    monkeypatch.setenv("MPCIUM_BROKER_TOKEN", "secret")
+    knobs = envfp.knob_snapshot()
+    assert knobs["MPCIUM_NATIVE_THREADS"] == "3" == jenvfp.knob_snapshot()["MPCIUM_NATIVE_THREADS"]
+    assert knobs["MPCIUM_OT_DEVICE"] == "0"
+    assert "MPCIUM_BROKER_TOKEN" not in knobs
+    assert envfp.env_fingerprint()["knobs"] == knobs
+
+
 def test_annotations_secret_and_thread_prefixes_are_the_jax_ones():
     assert annotations.Secret[bytes] is bytes is jann.Secret[bytes]
     assert annotations.REGISTERED_THREAD_PREFIXES == jann.REGISTERED_THREAD_PREFIXES

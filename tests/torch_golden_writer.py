@@ -2,7 +2,7 @@
 tests/test_torch_*.py --write-golden``) run each JAX case in a child
 process, and a long JAX protocol run sheds its compiled executables
 before XLA:CPU runs out of memory maps; a module that runs a cohorted
-pipeline stops the pipeline's host worker when it ends."""
+pipeline or the host OT route stops the host worker when it ends."""
 from __future__ import annotations
 
 import json
@@ -80,6 +80,29 @@ def pipe_host_down():
             pool, mod._HOST_POOL = mod._HOST_POOL, None
         if pool is not None:
             pool.shutdown(wait=True)
+
+
+def _stop_host_pool(mod, lock) -> None:
+    with lock:
+        pool, mod._HOST_POOL = mod._HOST_POOL, None
+    if pool is not None:
+        pool.shutdown(wait=True)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def ot_host_down():
+    """Stop the ``ot-host`` workers that the host OT route starts (the
+    port's, and the JAX package's when JAX's host route ran), when the
+    module ends, for the reason :func:`pipe_host_down` gives. Each pool
+    is made again at its next use. A test module uses the fixture by
+    importing it."""
+    yield
+    from mpcium_tpu_torch.protocol.ecdsa import mta_ot
+
+    _stop_host_pool(mta_ot, mta_ot._POOL_LOCK)
+    jax_mod = sys.modules.get("mpcium_tpu.protocol.ecdsa.mta_ot")
+    if jax_mod is not None:
+        _stop_host_pool(jax_mod, jax_mod._HOST_POOL_LOCK)
 
 
 # ---------------------------------------------------------------------------
