@@ -346,11 +346,22 @@ phase 19's child process between its lifecycle and phase 27:
     ``phases_s`` with r2_mta_ot's host, device and overlap_ratio. The
     phase sets ``MPCIUM_OT_DEVICE`` only around its own calls.
 
+The measurement round's bench (``python -m mpcium_tpu_torch.bench``), on
+the process of the golden phases after phase 26:
+
+34. bench — the bench CLI as a subprocess at BASELINE config 1: one
+    2-of-3 GG18 sign, B=1, 2048-bit Paillier fixture, default domains
+    (``MPCIUM_BENCH_B=1``, ``MPCIUM_BENCH_RUNS=1``; ``reduced``: no
+    secondary metrics, no OT variant, no sweep, which the round runs).
+    The child's record is printed on the phase line; it must exit 0 with
+    ``platform`` "gpu", ``batch`` 1, ``value`` > 0, no watchdog line, K0
+    launches > 0 and no plain call in its ``k0``.
+
 Phases 5, 6, 7, 9, 15 and 16 (the JAX goldens on the card), then phases
-32 and 26, run in that order on a spawned process of their own, started
-after phase 3 beside phases 19, 24 and 25; each golden phase and phase
-32 print their own lines, and the main process joins them after phase
-31 with a ``goldens`` line (``t_start_s``, ``t_end_s``).
+32, 26 and 34, run in that order on a spawned process of their own,
+started after phase 3 beside phases 19, 24 and 25; each golden phase and
+phases 32 and 34 print their own lines, and the main process joins them
+after phase 31 with a ``goldens`` line (``t_start_s``, ``t_end_s``).
 
 Every host verification runs the port's python-int verifiers over all
 signatures, spread over a pool of worker processes (one per host core).
@@ -2967,6 +2978,7 @@ def _goldens_task() -> dict:
     run_microbench()
     log.init(level="WARNING")
     chaos = run_chaos(CHAOS_SEED)
+    run_bench_cli()
     return {"t_start_s": t_start, "t_end_s": since_start(), "chaos": chaos}
 
 
@@ -2982,10 +2994,67 @@ def join_goldens(future, t_submit: float) -> dict:
     res = future.result()
     _GOLDEN_POOL.shutdown()
     chaos = res.pop("chaos")
-    emit({"phase": "goldens", "phases": [5, 6, 7, 9, 15, 16, 32, 26], **res,
+    emit({"phase": "goldens", "phases": [5, 6, 7, 9, 15, 16, 32, 26, 34], **res,
           "join_wait_s": time.perf_counter() - t0,
           "since_submit_s": time.perf_counter() - t_submit})
     return chaos
+
+
+# ---------------------------------------------------------------------------
+# phase 34: the measurement round's bench CLI at BASELINE config 1
+# ---------------------------------------------------------------------------
+
+BENCH_ENV = {"MPCIUM_BENCH_B": "1", "MPCIUM_BENCH_RUNS": "1", "MPCIUM_BENCH_NO_SECONDARY": "1",
+             "MPCIUM_BENCH_NO_OT": "1", "MPCIUM_BENCH_B_SWEEP": "none",
+             "MPCIUM_BENCH_WATCHDOG_S": "540"}
+BENCH_TIMEOUT_S = 600
+
+
+def run_bench_cli() -> None:
+    """Phase 34: ``python -m mpcium_tpu_torch.bench`` on the card at B=1
+    (its own process: K0's library loads from the build cache), the
+    child's last metric line printed and checked."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, **BENCH_ENV)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(ROOT), env.get("PYTHONPATH", "")) if p)
+    proc = subprocess.run([sys.executable, "-m", "mpcium_tpu_torch.bench"], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    rec = None
+    for line in reversed(proc.stdout.splitlines()):
+        if line.startswith("{"):
+            try:
+                doc = json.loads(line)
+            except ValueError:
+                continue
+            if isinstance(doc, dict) and "metric" in doc:
+                rec = doc
+                break
+    k0 = (rec or {}).get("k0") or {}
+    emit({"phase": "bench", "argv": "python -m mpcium_tpu_torch.bench", "env": BENCH_ENV,
+          "reduced": {"secondary": "none", "ot_variant": "none", "b_sweep": "none"},
+          "rc": proc.returncode, "wall_s": wall, "record": rec,
+          "stderr_tail": proc.stderr[-2000:] if proc.returncode else ""})
+    bad = []
+    if proc.returncode != 0:
+        bad.append(f"rc={proc.returncode}")
+    if rec is None:
+        bad.append("no metric line")
+    else:
+        if rec.get("platform") != "gpu":
+            bad.append(f"platform {rec.get('platform')!r}")
+        if rec.get("batch") != 1:
+            bad.append(f"batch {rec.get('batch')!r}")
+        if not (isinstance(rec.get("value"), (int, float)) and rec["value"] > 0):
+            bad.append(f"value {rec.get('value')!r}")
+        if rec.get("watchdog_timeout") or "watchdog" in proc.stderr:
+            bad.append("the watchdog fired")
+        if not k0.get("launches", 0) > 0:
+            bad.append(f"K0 launches {k0.get('launches')!r}")
+        if k0.get("plain_calls") != 0:
+            bad.append(f"K0 plain calls {k0.get('plain_calls')!r}")
+    if bad:
+        raise AssertionError(f"phase 34 bench: {bad}")
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,13 @@ every committed ``BENCH_*`` / ``SOAK_*`` / ``MULTICHIP_*`` /
 ``CAMPAIGN_*`` artifact normalizes into one record stream —
 ``PERF_history.jsonl`` — keyed by an env-fingerprint group so runs of
 one platform never average into another's trend. The port's own
-artifacts (``GPU_BENCH_*``, ``GPU_SOAK_*``) match none of the globs and
-are not ingested yet.
+artifacts (``GPU_BENCH_*.json`` from ``python -m mpcium_tpu_torch.bench``
+and the step benches, ``GPU_CAMPAIGN_r*.json`` from
+``scripts/torch_gpu_round.py``) match none of those globs: they normalize
+through the same normalizers into a history of the port's own,
+``GPU_PERF_history.jsonl`` (:func:`build_gpu_history`), where the chip
+platform is ``gpu``, so a ``gpu`` record is not degraded where a ``tpu``
+one is.
 
 Normalization is DETERMINISTIC from the artifact bytes: no wall clock,
 no host lookups — the history is a pure function of the committed
@@ -32,6 +37,12 @@ ARTIFACT_GLOBS = (
 _EXCLUDE = {"SOAK_local.json", "CAMPAIGN_state.json"}
 
 _ROUND_RE = re.compile(r"_r(\d+)\.json$")
+
+# the port's own artifacts and history: named apart, so that neither
+# history reads the other's records
+GPU_HISTORY_FILE = "GPU_PERF_history.jsonl"
+GPU_ARTIFACT_GLOBS = ("GPU_BENCH_*.json", "GPU_CAMPAIGN_r*.json")
+GPU_PREFIX = "GPU_"
 
 # bench-record numeric fields that are metrics (rates) vs context
 _RATE_SUFFIXES = ("_per_sec", "_per_s")
@@ -83,7 +94,7 @@ def _base_record(source: str, kind: str) -> dict:
     }
 
 
-def _normalize_bench_parsed(rec: dict, parsed: dict) -> None:
+def _normalize_bench_parsed(rec: dict, parsed: dict, chip: str = "tpu") -> None:
     platform = str(parsed.get("platform") or "unknown")
     rec["platform"] = platform
     rec["measured_at"] = parsed.get("measured_at")
@@ -163,7 +174,7 @@ def _normalize_bench_parsed(rec: dict, parsed: dict) -> None:
     # degraded = anything that must never blend into a chip trend:
     # off-chip platforms, watchdog zero-records, stale-fallback carriers
     rec["degraded"] = (
-        platform != "tpu"
+        platform != chip
         or not isinstance(value, (int, float))
         or float(value or 0.0) <= 0.0
         or bool(parsed.get("watchdog_timeout"))
@@ -196,7 +207,7 @@ def _normalize_bench_parsed(rec: dict, parsed: dict) -> None:
             }
 
 
-def _normalize_bench(source: str, doc: dict) -> dict:
+def _normalize_bench(source: str, doc: dict, chip: str = "tpu") -> dict:
     rec = _base_record(source, "bench")
     if "parsed" in doc or "rc" in doc:  # driver-wrapped round artifact
         rec["round"] = doc.get("n", rec["round"])
@@ -208,13 +219,13 @@ def _normalize_bench(source: str, doc: dict) -> dict:
             )
             rec["fingerprint"] = fingerprint_key(None)
             return rec
-        _normalize_bench_parsed(rec, parsed)
+        _normalize_bench_parsed(rec, parsed, chip)
         return rec
-    _normalize_bench_parsed(rec, doc)  # raw on-chip record
+    _normalize_bench_parsed(rec, doc, chip)  # raw on-chip record
     return rec
 
 
-def _normalize_soak(source: str, doc: dict) -> dict:
+def _normalize_soak(source: str, doc: dict, chip: str = "tpu") -> dict:
     rec = _base_record(source, "soak")
     thr = doc.get("throughput") or {}
     for k in ("sigs_per_s", "sigs_per_s_under_slo", "slo_hit_rate"):
@@ -238,7 +249,7 @@ def _normalize_soak(source: str, doc: dict) -> dict:
         rec["env"] = env
         rec["platform"] = str(env.get("platform") or "unknown")
     rec["fingerprint"] = fingerprint_key(env, platform_hint=rec["platform"])
-    rec["degraded"] = rec["platform"] != "tpu"
+    rec["degraded"] = rec["platform"] != chip
     if rec["degraded"]:
         rec["notes"].append(
             "host-platform soak (compile-dominated latencies) — not a chip "
@@ -262,7 +273,7 @@ def _normalize_multichip(source: str, doc: dict) -> dict:
     return rec
 
 
-def _normalize_pipeline(source: str, doc: dict) -> dict:
+def _normalize_pipeline(source: str, doc: dict, chip: str = "tpu") -> dict:
     """scripts/bench_pipeline_cpu.py A/B artifact: K-sweep idle
     fractions are the metrics; bit-identity and the collapse ratio are
     context."""
@@ -284,10 +295,10 @@ def _normalize_pipeline(source: str, doc: dict) -> dict:
         rec["platform"] = str(env.get("platform") or "unknown")
     rec["fingerprint"] = fingerprint_key(env, platform_hint=rec["platform"])
     rec["degraded"] = (
-        rec["platform"] != "tpu"
+        rec["platform"] != chip
         or not doc.get("signatures_bit_identical")
     )
-    if rec["platform"] != "tpu":
+    if rec["platform"] != chip:
         rec["notes"].append(
             "host-platform pipeline A/B (scheduling proof only) — the "
             "chip idle collapse is a claims-ledger item"
@@ -295,7 +306,7 @@ def _normalize_pipeline(source: str, doc: dict) -> dict:
     return rec
 
 
-def _normalize_campaign(source: str, doc: dict) -> dict:
+def _normalize_campaign(source: str, doc: dict, chip: str = "tpu") -> dict:
     """perf/campaign.py report: metrics/context were already lifted by
     the runner; DNF steps become notes so the history shows exactly
     which part of a round died."""
@@ -322,7 +333,7 @@ def _normalize_campaign(source: str, doc: dict) -> dict:
     # a rehearsal is degraded BY DESIGN (it proves the harness, not the
     # numbers); a live campaign is degraded off-chip or when incomplete
     rec["degraded"] = (
-        rec["platform"] != "tpu"
+        rec["platform"] != chip
         or bool(doc.get("rehearse"))
         or not doc.get("complete")
     )
@@ -337,25 +348,44 @@ def _normalize_campaign(source: str, doc: dict) -> dict:
 def normalize(path: str) -> dict:
     """One committed artifact → one normalized history record. Raises
     on unreadable JSON — an artifact the ledger cannot parse is a gate
-    failure, not a silent skip."""
+    failure, not a silent skip. A ``GPU_*`` artifact of the port takes the
+    normalizer its name without the prefix names, with ``gpu`` as the
+    chip platform; its ``source`` keeps the full name."""
     name = os.path.basename(path)
     with open(path) as f:
         doc = json.load(f)
-    if name.startswith("SOAK_"):
-        return _normalize_soak(name, doc)
-    if name.startswith("MULTICHIP_"):
+    chip = "tpu"
+    kind = name
+    if name.startswith(GPU_PREFIX):
+        chip, kind = "gpu", name[len(GPU_PREFIX):]
+    if kind.startswith("SOAK_"):
+        return _normalize_soak(name, doc, chip)
+    if kind.startswith("MULTICHIP_"):
         return _normalize_multichip(name, doc)
-    if name.startswith("CAMPAIGN_"):
-        return _normalize_campaign(name, doc)
-    if name.startswith("BENCH_pipeline_"):
-        return _normalize_pipeline(name, doc)
-    return _normalize_bench(name, doc)
+    if kind.startswith("CAMPAIGN_"):
+        return _normalize_campaign(name, doc, chip)
+    if kind.startswith("BENCH_pipeline_"):
+        return _normalize_pipeline(name, doc, chip)
+    return _normalize_bench(name, doc, chip)
 
 
 def build_history(root: str) -> List[dict]:
     """Every committed artifact, normalized and deterministically
     ordered (kind, round, source)."""
     records = [normalize(p) for p in discover_artifacts(root)]
+    records.sort(key=lambda r: (r["kind"], r["round"] or 0, r["source"]))
+    return records
+
+
+def discover_gpu_artifacts(root: str) -> List[str]:
+    """The port's artifacts at ``root`` (``GPU_ARTIFACT_GLOBS``)."""
+    return sorted({p for pat in GPU_ARTIFACT_GLOBS for p in glob.glob(os.path.join(root, pat))})
+
+
+def build_gpu_history(root: str) -> List[dict]:
+    """The port's artifacts, normalized and ordered as
+    :func:`build_history` orders JAX's; written as ``GPU_HISTORY_FILE``."""
+    records = [normalize(p) for p in discover_gpu_artifacts(root)]
     records.sort(key=lambda r: (r["kind"], r["round"] or 0, r["source"]))
     return records
 

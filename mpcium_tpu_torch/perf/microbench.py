@@ -11,9 +11,10 @@ raises without one), finishing each sample with
 - ``field_mulmod``, ``sha256_block``, ``sha512_block``: host field
   arithmetic and hashing (python ints, hashlib);
 - ``wheel_latency``: schedule→fire latency of the scheduler's
-  ``_TimingWheel``, each sample the best of three hops (JAX's row takes
-  one hop a sample; on the card's shared host its tail let a 1.5× copy
-  pass the gate);
+  ``_TimingWheel``, each sample the best of ``WHEEL_HOPS`` (64) hops
+  (JAX's row takes one hop a sample; on the card's shared host, with
+  three or sixteen hops a sample, the tail let a 1.5× copy pass the
+  gate);
 - ``span_overhead``: the port's span open/close cost with tracing armed;
 - ``prg_expand_device`` / ``ot_transpose_device``: ``hash_suite.prg_expand``
   and ``ot_transpose`` (the IKNP PRG and the packed bit transpose);
@@ -41,6 +42,11 @@ from typing import Callable, Dict, List
 _P = 2**256 - 2**32 - 977
 
 DEFAULT_SAMPLES = 30
+# hops a wheel_latency sample takes the best of: each hop waits on two
+# thread wake-ups, which a loaded host delays by up to milliseconds
+# (scripts/torch_wheel_spread.py: at 3 and 16 hops the 1.5x copy passed
+# the gate beside busy processes on the card's host, at 64 it never did)
+WHEEL_HOPS = 64
 
 
 def _timed_samples(fn: Callable[[], None], samples: int,
@@ -99,23 +105,23 @@ def sha256_block(samples: int = DEFAULT_SAMPLES, kib: int = 96) -> List[float]:
     return _timed_samples(body, samples)
 
 
-def wheel_latency(samples: int = DEFAULT_SAMPLES) -> List[float]:
+def wheel_latency(samples: int = DEFAULT_SAMPLES, hops: int = WHEEL_HOPS) -> List[float]:
     """Schedule→fire latency of the scheduler's timing wheel, measured
-    on the real class, best of three hops a sample; the wheel's thread
+    on the real class, best of ``hops`` hops a sample; the wheel's thread
     is closed before returning."""
     from ..consumers.batch_scheduler import _TimingWheel
 
     wheel = _TimingWheel(name="perfcheck-wheel")
-    hops = itertools.count()
+    keys = itertools.count()
 
     def hop() -> None:
         fired = threading.Event()
-        wheel.schedule(("s", next(hops)), 0.0, fired.set)
+        wheel.schedule(("s", next(keys)), 0.0, fired.set)
         if not fired.wait(2.0):
             raise RuntimeError("timing wheel never fired (perfcheck)")
 
     try:
-        return _timed_samples(hop, samples)
+        return _timed_samples(hop, samples, best_of=hops)
     finally:
         wheel.close()
 

@@ -14,7 +14,9 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "mpcium_tpu"}
 SCRIPTS = ["torch_chaos_drill.py", "torch_load_soak.py", "torch_chaos_soak_alone.py",
            "torch_boot_alone.py", "torch_sign_ab.py", "torch_k0_ab.py", "torch_profile_alone.py",
-           "torch_check_all.py", "torch_mpcflow_budget.py", "torch_ot_host_alone.py"]
+           "torch_check_all.py", "torch_mpcflow_budget.py", "torch_ot_host_alone.py",
+           "torch_gpu_round.py", "torch_bench_ot_host.py", "torch_bench_pipeline.py",
+           "torch_wheel_spread.py"]
 SOURCES = sorted((ROOT / "mpcium_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
     ROOT / "scripts" / name for name in SCRIPTS]
 
@@ -92,6 +94,12 @@ def test_the_guard_sees_every_port_module_and_every_import_form(tmp_path):
     from mpcium_tpu_torch import native
 
     assert native.SRC == ROOT / "mpcium_tpu_torch" / "native" / "batch_hash.cpp"
+    # the measurement round: the repo-root bench.py and the JAX campaign,
+    # ported as a module of the package and three scripts
+    assert {"mpcium_tpu_torch/bench.py", "mpcium_tpu_torch/perf/campaign.py"} <= names
+    assert (ROOT / "bench.py").is_file() and (ROOT / "mpcium_tpu" / "perf" / "campaign.py").is_file()
+    for jax_script in ("tpu_round.py", "bench_ot_host.py", "bench_pipeline_cpu.py"):
+        assert (ROOT / "scripts" / jax_script).is_file()
     sample = tmp_path / "sample.py"
     sample.write_text("import jax.numpy as jnp\n"
                       "def f():\n"
