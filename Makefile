@@ -2,7 +2,7 @@
 
 PY ?= python
 
-.PHONY: install lint check shapecheck warmcheck claimscheck prewarm trace-check perfcheck perf-tests test test-all bench tpu-round broker chaos soak soak-tests setup-identities setup-initiator clean
+.PHONY: install lint check shapecheck warmcheck claimscheck prewarm trace-check perfcheck perf-tests test test-all bench tpu-round broker chaos soak soak-tests setup-identities setup-initiator clean torch-verify-drive torch-trace-check torch-perfcheck torch-claimscheck torch-prewarm torch-warmcheck
 
 install:
 	pip install -e . --no-build-isolation --no-deps
@@ -67,6 +67,34 @@ perfcheck:
 
 perf-tests:
 	$(PY) -m pytest tests/ -m perf -q
+
+# the PyTorch port's tools (scripts/torch_*.py): on the GPU by default;
+# TORCH_DEVICE=cpu runs the plain path (claimscheck and warmcheck read
+# files only). On the card: scripts/torch_tools_alone.py through the chip
+# tool runs the verify drive, the trace regeneration, the perf gate, the
+# prewarm walk and the signing example in turn.
+TORCH_DEVICE ?=
+TORCH_DEV = $(if $(TORCH_DEVICE),--device $(TORCH_DEVICE))
+
+torch-verify-drive:
+	$(PY) scripts/torch_verify_drive.py $(TORCH_DEV)
+
+torch-trace-check:
+	$(PY) scripts/torch_trace_check.py $(TORCH_DEV)
+
+# strict only against a baseline taken on this host and device
+# (mpcium_tpu_torch/data/perf_baseline_micro_gpu.json); informational elsewhere
+torch-perfcheck:
+	$(PY) scripts/torch_perfcheck.py $(TORCH_DEV)
+
+torch-claimscheck:
+	$(PY) scripts/torch_claimscheck.py
+
+torch-prewarm:
+	$(PY) scripts/torch_prewarm.py $(TORCH_DEV)
+
+torch-warmcheck:
+	$(PY) scripts/torch_prewarm.py --check
 
 # mpctrace gate alone (OBSERVABILITY.md): committed TRACE_sample.json
 # validates + covers every instrumented layer, and a traced protocol

@@ -102,6 +102,18 @@ def reset_counters() -> None:
         powmod_launches_by_mode_width.clear()
 
 
+def counters() -> dict:
+    """The counters as one JSON-able snapshot: widths as ``n<width>``,
+    powmod keys as ``<mode>_n<width>``."""
+    with _count_lock:
+        return {"launches": launches,
+                "launches_by_width": {f"n{n}": v for n, v in sorted(launches_by_width.items())},
+                "powmod_launches_by_mode_width": {
+                    f"{mode}_n{n}": v
+                    for (mode, n), v in sorted(powmod_launches_by_mode_width.items())},
+                "plain_calls": plain_calls}
+
+
 @dataclass(frozen=True)
 class MulmodConsts:
     """Per-modulus operands, built once by ``MXUBarrett``: the Toeplitz

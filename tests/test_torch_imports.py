@@ -12,13 +12,12 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "mpcium_tpu"}
-SCRIPTS = ["torch_chaos_drill.py", "torch_load_soak.py", "torch_chaos_soak_alone.py",
-           "torch_boot_alone.py", "torch_sign_ab.py", "torch_k0_ab.py", "torch_profile_alone.py",
-           "torch_check_all.py", "torch_mpcflow_budget.py", "torch_ot_host_alone.py",
-           "torch_gpu_round.py", "torch_bench_ot_host.py", "torch_bench_pipeline.py",
-           "torch_wheel_spread.py"]
-SOURCES = sorted((ROOT / "mpcium_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
-    ROOT / "scripts" / name for name in SCRIPTS]
+# every script and example of the port, by glob: a new one is guarded
+# the moment it exists
+SCRIPTS = sorted((ROOT / "scripts").glob("torch_*.py")) + sorted(
+    (ROOT / "scripts" / "migration").glob("torch_*.py")) + sorted(
+    (ROOT / "examples" / "torch").glob("*.py"))
+SOURCES = sorted((ROOT / "mpcium_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + SCRIPTS
 
 
 def _imports(path: Path):
@@ -67,7 +66,27 @@ def test_the_guard_sees_every_port_module_and_every_import_form(tmp_path):
              "perf/envfp", "warm/prewarm"]
     assert {f"mpcium_tpu_torch/{m}.py" for m in chaos} <= names
     assert all((ROOT / "mpcium_tpu" / f"{m}.py").is_file() for m in chaos)
-    assert {f"scripts/{n}" for n in SCRIPTS} <= names
+    # the port's scripts: those once listed by hand, the five the hand
+    # list missed, and the tools, the migration and the examples
+    listed = ["torch_chaos_drill.py", "torch_load_soak.py", "torch_chaos_soak_alone.py",
+              "torch_boot_alone.py", "torch_sign_ab.py", "torch_k0_ab.py",
+              "torch_profile_alone.py", "torch_check_all.py", "torch_mpcflow_budget.py",
+              "torch_ot_host_alone.py", "torch_gpu_round.py", "torch_bench_ot_host.py",
+              "torch_bench_pipeline.py", "torch_wheel_spread.py"]
+    missed = ["torch_serving_alone.py", "torch_deployment_alone.py", "torch_eddsa_opcount.py",
+              "torch_eddsa_profile.py", "torch_verify_ab.py"]
+    tools = ["torch_verify_drive.py", "torch_trace_check.py", "torch_perfcheck.py",
+             "torch_claimscheck.py", "torch_prewarm.py", "torch_tools_alone.py"]
+    assert {f"scripts/{n}" for n in listed + missed + tools} <= names
+    assert {"scripts/migration/torch_add_epoch.py", "examples/torch/_connect.py",
+            "examples/torch/generate.py", "examples/torch/sign.py",
+            "examples/torch/reshare.py"} <= names
+    # each a port of the JAX package's file of the same name
+    for n in tools[:-1]:
+        assert (ROOT / "scripts" / n[len("torch_"):]).is_file()
+    assert (ROOT / "scripts" / "migration" / "add_epoch.py").is_file()
+    for n in ("_connect.py", "generate.py", "sign.py", "reshare.py"):
+        assert (ROOT / "examples" / n).is_file()
     # the daemon's boot: the session axis over local devices and warm start
     boot = ["engine/sharded", "warm/manifest", "warm/prewarm"]
     assert {f"mpcium_tpu_torch/{m}.py" for m in boot} <= names
