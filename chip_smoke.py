@@ -253,8 +253,9 @@ process prints their lines at the end):
     soak configuration (``SOAK_CFG``: 3 nodes, t=1, 12 dealer ed25519
     wallets, bursts of 16 signs every 0.3 s, a quarter interactive,
     ``batch-chaos`` at scale 1.0, a queue depth of 10 below the burst so
-    backpressure sheds and retries run), cut in depth to one burst
-    (16 signs, not 48: ``SOAK_REDUCED``, in the line). The line is the
+    backpressure sheds and retries run), all three bursts (48 signs;
+    earlier cut to one burst, before the EdDSA engine replayed CUDA
+    graphs; ``reduced`` is null). The line is the
     report without its trace (outcomes, latency percentiles, throughput,
     scheduler counters) with the batch sizes from the trace's dispatch
     spans and how its party sessions overlapped (the most live at once,
@@ -289,7 +290,9 @@ their lines after phase 25's):
     backends; 12 entries): every entry warmed on ``cuda``, none failed
     or skipped, K0 launched by the two Paillier entries only (their
     ``cache`` is K0's build verdict), and at n=160 by both entries in
-    every powmod mode; ``warm_s`` per entry.
+    every powmod mode; the EdDSA engine's entry captured its graphs (its
+    ``graphs`` hits and misses); ``warm_s`` per entry and
+    ``torch.cuda.memory_reserved()`` after the pass.
 
 The measurement tooling (the engines' phase spans, ``perf/profile.py``,
 ``perf/microbench.py`` and ``perf/statcheck.py``); phases 30 and 31 in
@@ -356,6 +359,30 @@ the process of the golden phases after phase 26:
     The child's record is printed on the phase line; it must exit 0 with
     ``platform`` "gpu", ``batch`` 1, ``value`` > 0, no watchdog line, K0
     launches > 0 and no plain call in its ``k0``.
+
+The EdDSA engine's per-shape CUDA graphs (``engine/graphs.py``, the
+port's counterpart of ``jax.jit``), in phase 19's child process after
+phase 27 (the lane that ends first; the main process prints its line
+before phase 26's):
+
+35. graphs — (a) each graphed function of the engine (the JAX package's
+    nine jitted ones and the challenge's SHA-512) at B = 1, 16 and
+    1,024 (q = 2) on the seeded inputs of ``utils/graphs_golden.calls``:
+    its replay must equal ``fn.eager`` (the body, every nested graphed
+    call eager) byte for byte; the first call's seconds (the capture, or
+    a hit where an earlier phase captured the key), the replay's time
+    (GRAPHS_REPLAYS back to back) and the eager body's (one call, whose
+    result is compared), each from CUDA events and the host clock, the
+    key's pool bytes and capture seconds. (b) A 2-of-3 batched party
+    sign of GRAPHS_PARTY_B dealer wallets three times under the same
+    seeded streams: a warm-up, one through graphs only (no capture and
+    no eager body run on the card: the counters' deltas), one with every
+    body eager; the signatures must be equal and verify on the host.
+    (c) Three threads replay one key (``verify_signatures`` at B=16) 10
+    times each with their own inputs: each must get its serial result.
+    The line carries the card's name and power limit, the counters per
+    function, the captured keys and ``torch.cuda.memory_reserved()``;
+    one capture per key.
 
 Phases 5, 6, 7, 9, 15 and 16 (the JAX goldens on the card), then phases
 32, 26 and 34, run in that order on a spawned process of their own,
@@ -1220,6 +1247,7 @@ def run_eddsa_slice(B: int, seed: int, K, dev: str = "cuda"):
         "host_verify_s": verify_s, "ok_all": bool(ok.all()), "verified": verified,
         "tamper_lane": lane, "tamper_rejected_on_that_lane_only": tamper_ok,
         "tamper_verify_s": tamper_verify_s, "k0_launches": k0[0], "plain_calls": k0[1],
+        "memory_reserved": torch.cuda.memory_reserved() if dev == "cuda" else None,
     })
     if not ok.all() or verified != B:
         raise AssertionError(f"EdDSA signatures: ok={int(ok.sum())}/{B} verified={verified}/{B}")
@@ -1280,6 +1308,189 @@ def run_eddsa_party(B: int, seed: int, shares, dev: str = "cuda") -> None:
 # ---------------------------------------------------------------------------
 
 UNIVERSE = ["node0", "node1", "node2"]
+
+
+# ---------------------------------------------------------------------------
+# phase 35: the EdDSA engine's per-shape CUDA graphs (engine/graphs.py)
+# ---------------------------------------------------------------------------
+
+GRAPHS_B = (1, 16, 1024)  # batch sizes of phase 35's replay-vs-eager rows (q = 2)
+GRAPHS_PARTY_B = 16
+GRAPHS_REPLAYS = 10  # replays timed per row, between one event pair; the eager body once
+
+
+def _graph_fns():
+    from mpcium_tpu_torch.engine import eddsa_batch as eb
+    from mpcium_tpu_torch.utils import graphs_golden as gg
+
+    return {**{n: getattr(eb, n) for n in gg.FUNCTIONS if n != "sha512"}, "sha512": eb._sha512}
+
+
+def _timed_calls(fn, n: int, dev: str):
+    """n back-to-back calls between one CUDA event pair → (device ms,
+    host ms) per call; the host clock stops after a synchronize."""
+    import torch
+
+    if dev != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return None, (time.perf_counter() - t0) * 1e3 / n
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n, (time.perf_counter() - t0) * 1e3 / n
+
+
+def _graph_count_delta(c0: dict, c1: dict) -> dict:
+    return {fn: {k: c1[fn][k] - c0.get(fn, {}).get(k, 0) for k in c1[fn]} for fn in c1
+            if any(c1[fn][k] != c0.get(fn, {}).get(k, 0) for k in c1[fn])}
+
+
+def _graph_party_sign(B: int, seed: int, shares, msgs, dev: str, eager: bool):
+    """2-of-3 batched party sign of B wallets (node0, node1) under seeded
+    streams → (signatures, ok all, wall s); ``eager`` runs every graphed
+    function's body instead of its graph."""
+    from mpcium_tpu_torch.engine import graphs
+    from mpcium_tpu_torch.protocol.eddsa.batch_signing import BatchedEDDSASigningParty
+    from mpcium_tpu_torch.protocol.runner import run_protocol
+    from mpcium_tpu_torch.utils.rng import SeededStream
+
+    quorum = ["node0", "node1"]
+    parties = {pid: BatchedEDDSASigningParty(f"chip-graphs-{seed}", pid, quorum, shares[i][:B],
+                                             msgs, rng=SeededStream(seed + 40 + i), cohorts=1,
+                                             device=dev)
+               for i, pid in enumerate(quorum)}
+    t0 = time.perf_counter()
+    with graphs.eager_bodies() if eager else contextlib.nullcontext():
+        run_protocol(parties)
+        _sync(dev)
+    wall = time.perf_counter() - t0
+    res = [parties[p].result for p in quorum]
+    if not all(bytes(r["signatures"].tobytes()) == bytes(res[0]["signatures"].tobytes())
+               for r in res):
+        raise AssertionError("graphs: the parties' signatures differ")
+    return res[0]["signatures"], all(bool(r["ok"].all()) for r in res), wall
+
+
+def run_graphs(seed: int, dev: str = "cuda", bs=GRAPHS_B, party_b: int = GRAPHS_PARTY_B) -> dict:
+    """Phase 35: for each graphed function at each B of GRAPHS_B (q = 2,
+    seeded inputs of ``utils/graphs_golden.calls``), the graph's replay
+    equals ``fn.eager`` byte for byte; replay and eager times (CUDA
+    events and the host clock) and the key's pool bytes. Then a 2-of-3
+    party sign at GRAPHS_PARTY_B three times: the first captures, the
+    second (graphs only: no capture, so no eager body run) and the third (every
+    body eager) must give the same signatures under the same seeded
+    streams, all verified on the host. Then three threads replay one
+    key at once, each must get its serial result. → the phase record."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from mpcium_tpu_torch.core import hostmath as hm
+    from mpcium_tpu_torch.engine import eddsa_batch as eb
+    from mpcium_tpu_torch.engine import graphs
+    from mpcium_tpu_torch.utils import graphs_golden as gg
+    from mpcium_tpu_torch.utils.rng import SeededStream
+
+    t_start = since_start()
+    fns = _graph_fns()
+    to_dev = lambda a: torch.as_tensor(np.array(a), device=dev)  # noqa: E731
+    c_start = graphs.counts()
+    rows, bad = [], []
+    for B in bs:
+        for name, args in gg.calls(B, 2, seed + B):
+            fn, a = fns[name], gg.to_args(args, to_dev)
+            t0 = time.perf_counter()
+            fn(*a)
+            _sync(dev)
+            first_s = time.perf_counter() - t0
+            replay_ms, replay_host_ms = _timed_calls(lambda: fn(*a), GRAPHS_REPLAYS, dev)
+            out: list = []
+            eager_ms, eager_host_ms = _timed_calls(lambda: out.append(fn.eager(*a)), 1, dev)
+            same = gg.encode(fn(*a)) == gg.encode(out[0])
+            if not same:
+                bad.append(f"{name} B={B}")
+            entry = fn.graphs.entries.get(graphs.call_key(fn.graphs.name, tuple(a), {})[0])
+            rows.append({"fn": name, "B": B, "equal": same, "first_call_s": first_s,
+                         "replay_ms": replay_ms, "replay_host_ms": replay_host_ms,
+                         "eager_ms": eager_ms, "eager_host_ms": eager_host_ms,
+                         "pool_bytes": entry.pool_bytes if entry else None,
+                         "capture_s": entry.capture_s if entry else None})
+    c_rows = graphs.counts()
+
+    # the party sign: warm (captures), graphs only, eager
+    B = party_b
+    shares = eb.dealer_keygen_batch(B, ["node0", "node1", "node2"], 1,
+                                    rng=SeededStream(seed + 35))
+    msgs = [r.tobytes() for r in np.random.default_rng(seed + 36).integers(
+        0, 256, (B, 32), dtype=np.uint8)]
+    sig_warm, ok_warm, warm_s = _graph_party_sign(B, seed, shares, msgs, dev, eager=False)
+    c0 = graphs.counts()
+    sig_graph, ok_graph, graph_s = _graph_party_sign(B, seed, shares, msgs, dev, eager=False)
+    c1 = graphs.counts()
+    sig_eager, ok_eager, eager_s = _graph_party_sign(B, seed, shares, msgs, dev, eager=True)
+    party_delta = _graph_count_delta(c0, c1)
+    verified = sum(hm.ed25519_verify(s.public_key, m, bytes(sig))  # 16 rows: no pool
+                   for s, m, sig in zip(shares[0], msgs, sig_graph))
+
+    # three threads replaying one key at once
+    inputs = [gg.to_args(dict(gg.calls(16, 2, seed + 100 + i))["verify_signatures"], to_dev)
+              for i in range(3)]
+    serial = [gg.encode(eb.verify_signatures(*a)) for a in inputs]
+    errors: list = []
+
+    def replayer(i: int) -> None:
+        for _ in range(10):
+            if gg.encode(eb.verify_signatures(*inputs[i])) != serial[i]:
+                errors.append(i)
+
+    threads = [threading.Thread(target=replayer, args=(i,)) for i in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    stuck = [t.name for t in threads if t.is_alive()]
+    counts = graphs.counts()
+    rec = {
+        "phase": "graphs", "device": dev, "nvidia_smi": smi() if dev == "cuda" else None,
+        "B": list(bs), "q": 2, "rows": rows, "mismatches": bad,
+        "rows_counts": _graph_count_delta(c_start, c_rows),
+        "party": {"B": B, "warm_s": warm_s, "graphs_s": graph_s, "eager_s": eager_s,
+                  "ok": [ok_warm, ok_graph, ok_eager], "verified": verified,
+                  "graphs_equal_eager": bool(np.array_equal(sig_graph, sig_eager)),
+                  "warm_equal": bool(np.array_equal(sig_warm, sig_graph)),
+                  "counts": party_delta},
+        "concurrent": {"threads": 3, "calls_each": 10, "errors": errors, "stuck": stuck},
+        "counts": counts, "entries": len(graphs.entries()),
+        "memory_reserved": torch.cuda.memory_reserved() if dev == "cuda" else None,
+        "t_start_s": t_start, "t_end_s": since_start(),
+    }
+    failed = [c for c, b in (
+        ("every replay equals its eager body", bad),
+        ("the party sign verifies and agrees", not (ok_warm and ok_graph and ok_eager)
+         or verified != B or not rec["party"]["graphs_equal_eager"]
+         or not rec["party"]["warm_equal"]),
+        ("no capture and no eager run after the warm-up",
+         any(c["captures"] for c in party_delta.values())
+         or (dev == "cuda" and not any(c["replays"] for c in party_delta.values()))),
+        ("concurrent replays give the serial results", errors or stuck),
+        ("one capture per key", sum(c["captures"] for c in counts.values())
+         != rec["entries"])) if b]
+    rec["failed_checks"] = failed
+    return rec
+
+
+def check_graphs(rec: dict) -> None:
+    if rec["failed_checks"]:
+        raise AssertionError(f"graphs: {rec['failed_checks']}: {rec['mismatches']}, "
+                             f"party {rec['party']}, concurrent {rec['concurrent']}")
 
 
 def _k0_counts(K):
@@ -1619,8 +1830,8 @@ def _lifecycle_task(B: int, seed: int):
 
 def start_lifecycle(B: int, seed: int, ot_host_B: int):
     """Start phase 19 on a spawned process, niced like phase 24's; it
-    overlaps the phases after the kernel timings. Phases 33 and 27 are
-    the worker's second task: they run after the lifecycle returns."""
+    overlaps the phases after the kernel timings. Phases 33, 27 and 35
+    are the worker's second task: they run after the lifecycle returns."""
     global _LIFECYCLE_POOL
     _LIFECYCLE_POOL = spawned_pool()
     t_submit = time.perf_counter()
@@ -1648,16 +1859,13 @@ CHAOS_EXPECTED = {"node-crash": "recovered", "drop-jitter": "success",
                   "broker-failover": "success",
                   "partition": "loud-failure-then-recovery",
                   "kill-resume": "resumed", "cheater": "caught-and-quarantined"}
-# the JAX package's recorded soak configuration (SOAK_r01.json "config")
-# cut in depth only (SOAK_REDUCED): one burst of 16 signs, not three.
-# wait_timeout_s is the harness's wait for the last result (900 there):
-# a run still pending after it fails the books inside the script's limit
-SOAK_REDUCED = {"n_sign": [48, 16], "why": "at 48 signs the soak took 565 s alone on an "
-                "NVIDIA H100 80GB HBM3 at 700 W (every party sign shares one GIL with "
-                "every batch in flight) and its followers' 120 s manifest timeouts fell "
-                "back 4 requests to the per-session path; one burst fits the lane after "
-                "phase 19"}
-SOAK_CFG = {"n_nodes": 3, "threshold": 1, "n_wallets": 12, "n_sign": 16,
+# the JAX package's recorded soak configuration (SOAK_r01.json "config"),
+# all 48 signs (three bursts of 16) since the EdDSA engine replays CUDA
+# graphs; before, it was cut to one burst. wait_timeout_s is the
+# harness's wait for the last result (900 there): a run still pending
+# after it fails the books inside the script's limit
+SOAK_REDUCED = None
+SOAK_CFG = {"n_nodes": 3, "threshold": 1, "n_wallets": 12, "n_sign": 48,
             "n_keygen": 0, "n_reshare": 0, "burst_size": 16, "burst_gap_s": 0.3,
             "seed": 1337, "interactive_fraction": 0.25,
             "interactive_deadline_ms": 120_000, "bulk_deadline_ms": 600_000,
@@ -1805,12 +2013,13 @@ def check_soak(rec: dict) -> None:
 
 
 def _ot_host_soak_task(B: int, seed: int, dev: str = "cuda") -> dict:
-    """Phases 33 and 27 in phase 19's child, after its lifecycle: phase 33
-    prints its own line, then the soak runs with cluster logs at WARNING
-    (its faults log by design). The soak comes last, where the fewest
-    other lanes share the host and the card: its followers fall back to
-    the per-session path when a manifest takes longer than twice
-    ``manifest_timeout_s``."""
+    """Phases 33, 27 and 35 in phase 19's child, after its lifecycle:
+    phase 33 prints its own line, then the soak runs with cluster logs at
+    WARNING (its faults log by design), then phase 35. The soak comes
+    after the lifecycle and phase 33, where the fewest other lanes share
+    the host and the card: its followers fall back to the per-session
+    path when a manifest takes longer than twice ``manifest_timeout_s``;
+    phase 35 only follows it."""
     global _POOL
     from mpcium_tpu_torch.ops import mulmod as K
     from mpcium_tpu_torch.utils import log
@@ -1822,7 +2031,8 @@ def _ot_host_soak_task(B: int, seed: int, dev: str = "cuda") -> dict:
             _POOL.shutdown()
             _POOL = None
     log.init(level="WARNING")
-    return {"soak": run_soak_phase(dev)}
+    soak = run_soak_phase(dev)
+    return {"soak": soak, "graphs": run_graphs(seed, dev)}
 
 
 def chaos_soak_finish(chaos: dict, soak: dict, extra: dict) -> None:
@@ -1837,14 +2047,17 @@ def chaos_soak_finish(chaos: dict, soak: dict, extra: dict) -> None:
 
 
 def join_chaos_soak(chaos: dict, future, t_submit: float) -> None:
-    """Wait for phase 27 (phase 19's worker, after phase 33), then finish
-    it with phase 26's record (the goldens' process)."""
+    """Wait for phases 27 and 35 (phase 19's worker, after phase 33),
+    then finish them with phase 26's record (the goldens' process)."""
     t0 = time.perf_counter()
     res = future.result()
     wait_s = time.perf_counter() - t0
     _LIFECYCLE_POOL.shutdown()
-    chaos_soak_finish(chaos, res["soak"], {"overlapped": True, "join_wait_s": wait_s,
-                                           "since_submit_s": time.perf_counter() - t_submit})
+    extra = {"overlapped": True, "join_wait_s": wait_s,
+             "since_submit_s": time.perf_counter() - t_submit}
+    emit({**res["graphs"], **extra})
+    chaos_soak_finish(chaos, res["soak"], extra)
+    check_graphs(res["graphs"])
 
 
 def run_eddsa_dkg(B: int, seed: int, K, dev: str = "cuda") -> None:
@@ -2534,7 +2747,8 @@ def deployment_run(W: int, seed: int, dev=None, root: Path = None) -> dict:
     declines, K0's gauges grow on every node across each sign stage (both
     entries at both widths, every powmod mode of the path) with no plain
     call and stay put around create and reshare, the compile section reads
-    ready with the K0 build, node0's flight recorder is valid Chrome JSON,
+    ready with the K0 build and the EdDSA graphs' captures (no other
+    entry), node0's flight recorder is valid Chrome JSON,
     and every process exits 0 on SIGTERM within 30 s. On the CPU
     (``dev="cpu"``, a rehearsal) the signs must reach K0's plain versions
     and never the kernel, and no build is ledgered. → the phase record and
@@ -2648,8 +2862,10 @@ def deployment_run(W: int, seed: int, dev=None, root: Path = None) -> dict:
         sign_stage("sign_after_reshare", "s2")
         compile_ = {nid: s["compile"] for nid, s in h.items()}
         for nid, c in compile_.items():
-            built = bool(c["last"]) and c["last"]["engine"] == "mulmod"
-            if c["state"] != "ready" or built != on_card:
+            # K0's build is the one ledger entry that is not a graph capture
+            graphs_ = sum(g["captures"] for g in c["graphs"].values())
+            if (c["state"] != "ready" or (c["compiles"] - graphs_ == 1) != on_card
+                    or bool(graphs_) != on_card):
                 raise AssertionError(f"deployment: {nid}'s compile section {c}")
         record = {
             "phase": "deployment", "nodes": dep.nodes, "threshold": 1, "wallets": W,
@@ -2879,7 +3095,11 @@ def warm_run(K, dev: str = "cuda") -> dict:
     1024-bit fixture): every entry must warm on the device, none fail or
     be skipped; the entries that launch K0 (the Paillier MtA) report its
     build verdict, the rest ``none``, and K0 must have launched both
-    entries at n=160 in every mode of POWMOD_WARM. → the phase record."""
+    entries at n=160 in every mode of POWMOD_WARM; the EdDSA entry must
+    have captured graphs (its ``cache`` is their verdict). → the phase
+    record."""
+    import torch
+
     from mpcium_tpu_torch.warm import manifest as wm
     from mpcium_tpu_torch.warm import prewarm as pw
 
@@ -2894,15 +3114,20 @@ def warm_run(K, dev: str = "cuda") -> dict:
                                                 "compile_s", "device", "reason")}
                        for r in rep["results"]],
            "k0": _k0_json(k0)}
+    rec["memory_reserved"] = torch.cuda.memory_reserved() if dev == "cuda" else None
     t = rep["totals"]
-    k0_engines = {r["engine"] for r in rep["results"] if r.get("cache") not in (None, "none")}
+    k0_engines = {r["engine"] for r in rep["results"]
+                  if r.get("cache") not in (None, "none") and "graphs" not in r}
     want_k0 = {"gg18.sign", "party.ecdsa"} if dev != "cpu" else set()
     rec["k0_entries"] = sorted(k0_engines)
+    rec["graph_entries"] = {r["engine"]: r["graphs"] for r in rep["results"] if "graphs" in r}
     rec["failed_checks"] = [c for c, bad in (
         ("every entry warmed", t["warmed"] != t["entries"] or t["entries"] != 12),
         ("nothing failed or skipped", t["failed"] or t["skipped"]),
         ("on the device", any(r["device"] != str(pw.resolve(dev)) for r in rep["results"])),
         ("K0 on the Paillier entries", k0_engines != want_k0),
+        ("the EdDSA entry captures its graphs", dev != "cpu" and not rec["graph_entries"].get(
+            "eddsa.sign", {}).get("misses")),
         ("K0 at n=160 in every mode", dev != "cpu" and not (
             k0["mulmod_by_width"].get(160) and all(
                 k0["powmod_by_mode_width"].get(key) for key in POWMOD_WARM)))) if bad]

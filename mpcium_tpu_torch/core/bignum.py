@@ -135,6 +135,15 @@ def _arange(n: int, device: torch.device, start: int = 0) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
+def const_limbs(value: int, prof: LimbProfile, device, dtype=I32) -> torch.Tensor:
+    """The limbs of ``value`` as a tensor on ``device``, uploaded once per
+    (value, profile, device, dtype) and shared by every caller: never
+    write to it (clone first). A per-call upload from host memory would
+    synchronise the stream, which a CUDA graph capture forbids."""
+    return torch.as_tensor(to_limbs(value, prof), dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=None)
 def _conv_tensor(n_a: int, n_b: int) -> np.ndarray:
     """One-hot (n_a, n_b, n_a+n_b-1) tensor M with M[i,j,i+j] = 1."""
     m = np.zeros((n_a, n_b, n_a + n_b - 1), dtype=np.int32)
@@ -517,7 +526,7 @@ class BarrettCtx:
         return out
 
     def const(self, value: int, batch_shape=()) -> torch.Tensor:
-        v = torch.as_tensor(
-            to_limbs(value % self.modulus, self.prof), device=self.device
-        )
+        """value mod m broadcast to ``batch_shape``: a view of the shared
+        cached limbs (:func:`const_limbs`), read-only."""
+        v = const_limbs(value % self.modulus, self.prof, self.device)
         return v.expand(tuple(batch_shape) + (self.prof.n_limbs,))

@@ -269,7 +269,7 @@ def equal(a: EdPointJ, b: EdPointJ) -> torch.Tensor:
     """Batch equality, Z-invariant: X1·Z2 == X2·Z1 and Y1·Z2 == Y2·Z1."""
     F = _field(a.X)
     m = F.mul(_stack(a.X, b.X, a.Y, b.Y), _stack(b.Z, a.Z, b.Z, a.Z))
-    ex, ey = F.is_zero(F.sub(m[[0, 2]], m[[1, 3]])).unbind(0)
+    ex, ey = F.is_zero(F.sub(m[0::2], m[1::2])).unbind(0)
     return ex & ey
 
 

@@ -231,9 +231,9 @@ class PseudoMersenneField:
         return out
 
     def const(self, value: int, batch_shape=()) -> torch.Tensor:
-        v = torch.as_tensor(
-            bn.to_limbs(value % self.p, PROF), dtype=F64, device=self.device
-        )
+        """value mod p broadcast to ``batch_shape``: a view of the shared
+        cached limbs (``bn.const_limbs``), read-only."""
+        v = bn.const_limbs(value % self.p, PROF, self.device, F64)
         return v.expand(tuple(batch_shape) + (_N,))
 
     def to_ints(self, x: torch.Tensor) -> list:

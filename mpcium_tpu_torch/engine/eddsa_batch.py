@@ -16,10 +16,14 @@ device SHA-512 (``ops/hash_suite``), so the round tensors stay on the
 device; only a ragged message batch hashes its challenges with
 ``hashlib`` on the host, with the same bytes.
 
-The JAX package's jitted kernels are plain functions here, and its
-donated round steps (``round_step_*``) return a new state dict; the
-signer takes an explicit ``device`` (None: the GPU, raising when there
-is none).
+The JAX package's nine jitted functions are :func:`engine.graphs.graphed`
+here: on CUDA each call replays a CUDA graph captured once per argument
+shape (the counterpart of a per-shape executable), on the CPU it runs
+the plain body. So is the challenge's SHA-512 (JAX's jitted
+``hash_suite.sha512_fixed``), graphed as ``eddsa.sha512``. The donated
+round steps (``round_step_*``) return a new state dict (torch has no
+buffer donation). The signer takes an explicit ``device`` (None: the
+GPU, raising when there is none).
 
 Session-axis sharding (``engine/sharded.arm_session_axis``): torch has
 no sharded tensor, so where JAX lets GSPMD partition each dispatch, the
@@ -45,6 +49,7 @@ from ..device import resolve
 from ..ops import hash_suite as hs
 from ..utils import tracing
 from . import pipeline as pl
+from .graphs import graphed
 
 # 512-bit inputs (hash outputs, wide nonces) occupy 43 twelve-bit limbs —
 # within BarrettCtx.reduce's 2n = 44-limb bound.
@@ -104,6 +109,7 @@ def _bits(s: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+@graphed("eddsa")
 def nonce_commitments(r64: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Round 1 compute. ``r64``: (..., 64) uint8 of fresh CSPRNG bytes.
 
@@ -115,6 +121,7 @@ def nonce_commitments(r64: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return r, ed.compress(ed.base_mul(_bits(r)))
 
 
+@graphed("eddsa")
 def aggregate_nonce(R_all: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(q, B, 32) compressed nonce shares → ((B, 32) compressed R = Σ R_i,
     (B,) validity mask)."""
@@ -125,6 +132,7 @@ def aggregate_nonce(R_all: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return ed.compress(acc), torch.all(ok, dim=0)
 
 
+@graphed("eddsa")
 def partial_signature(
     r_limbs: torch.Tensor, c64: torch.Tensor, lamx_limbs: torch.Tensor
 ) -> torch.Tensor:
@@ -136,6 +144,7 @@ def partial_signature(
     return L.addmod(r_limbs, L.mulmod(_reduce_wide(c64), lamx_limbs))
 
 
+@graphed("eddsa")
 def combine_signatures(
     s_parts: torch.Tensor, R_comp: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -150,6 +159,7 @@ def combine_signatures(
     return torch.cat([R_comp, s_bytes], dim=-1), s
 
 
+@graphed("eddsa")
 def verify_signatures(
     sig: torch.Tensor, A_comp: torch.Tensor, c64: torch.Tensor
 ) -> torch.Tensor:
@@ -160,7 +170,7 @@ def verify_signatures(
     pts, ok = ed.decompress(torch.stack([sig[..., :32], A_comp.to(dev)]))
     R_pt, A_pt = (ed.EdPointJ(*(c[i] for c in pts)) for i in (0, 1))
     s = bn.bytes_to_limbs_le(sig[..., 32:], PROF, PROF.n_limbs)
-    l_l = torch.as_tensor(bn.to_limbs(hm.ED_L, PROF), device=dev)
+    l_l = bn.const_limbs(hm.ED_L, PROF, dev)
     ok_range = bn.compare(s, l_l) < 0
     c = _reduce_wide(c64)
     lhs = ed.base_mul(_bits(s))
@@ -168,6 +178,7 @@ def verify_signatures(
     return ed.equal(lhs, rhs) & ok[0] & ok[1] & ok_range
 
 
+@graphed("eddsa")
 def fused_sign_step(
     r64: torch.Tensor, c64: torch.Tensor, lamx_limbs: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -197,6 +208,7 @@ def _commit_msg(pref: torch.Tensor, blinds: torch.Tensor, R_comp: torch.Tensor):
     return torch.cat([pref.expand((q, B) + pref.shape), blinds, R_comp], dim=-1)
 
 
+@graphed("eddsa")
 def round_step_nonce(st: dict, pref: torch.Tensor) -> Dict[str, torch.Tensor]:
     """R1: ``{r64 (q,B,64), blinds (q,B,32)}`` → ``{r, R_comp,
     commit_msg, commits}``."""
@@ -206,6 +218,7 @@ def round_step_nonce(st: dict, pref: torch.Tensor) -> Dict[str, torch.Tensor]:
             "commits": hs.sha256(commit_msg)}
 
 
+@graphed("eddsa")
 def round_step_aggregate(st: dict) -> Dict[str, torch.Tensor]:
     """R2: re-hash the received commitment tensors (one fraud verdict for
     the batch) and aggregate the nonce points."""
@@ -215,6 +228,7 @@ def round_step_aggregate(st: dict) -> Dict[str, torch.Tensor]:
             "fraud_free": torch.all(again == st["commits"])}
 
 
+@graphed("eddsa")
 def round_step_partial(st: dict, c64: torch.Tensor,
                        lamx: torch.Tensor) -> Dict[str, torch.Tensor]:
     """R3: partial signatures + combine."""
@@ -228,6 +242,10 @@ def round_step_partial(st: dict, c64: torch.Tensor,
 # host helpers
 # ---------------------------------------------------------------------------
 
+# the challenge digests: JAX's jitted ``sha512_fixed``, one graph per
+# (B, 64 + message length)
+_sha512 = graphed("eddsa")(hs.sha512)
+
 
 def challenge_device(R_comp, A_comp, M, device=None) -> torch.Tensor:
     """SHA-512(R ‖ A ‖ M) over (B, 32)/(B, 32)/(B, L) uint8 rows (tensors
@@ -235,7 +253,7 @@ def challenge_device(R_comp, A_comp, M, device=None) -> torch.Tensor:
     device when it is a tensor)."""
     if device is None:
         device = R_comp.device if isinstance(R_comp, torch.Tensor) else resolve(None)
-    return hs.sha512(torch.cat([hs.as_bytes(x, device) for x in (R_comp, A_comp, M)], dim=-1))
+    return _sha512(torch.cat([hs.as_bytes(x, device) for x in (R_comp, A_comp, M)], dim=-1))
 
 
 def _host(x) -> np.ndarray:

@@ -27,6 +27,7 @@ values.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import List
 
@@ -108,29 +109,43 @@ def sha256_compress(state: List[torch.Tensor], block: torch.Tensor) -> List[torc
     return [(x + y) & _M32 for x, y in zip(state, (a, b, c, d, e, f, g, h))]
 
 
+# Constants below are uploaded once per device (and padding tail) and
+# shared: a per-call upload would synchronise the stream, which a CUDA
+# graph capture forbids (engine/graphs.py). Never write to them.
+
+
+@functools.lru_cache(maxsize=None)
+def _be32_shifts(device) -> torch.Tensor:
+    return torch.tensor([24, 16, 8, 0], device=device)
+
+
 def bytes_to_words32(b: torch.Tensor) -> torch.Tensor:
     """(..., 4k) uint8 big-endian → (..., k) int64 words."""
     k = b.shape[-1] // 4
     w = b.reshape(b.shape[:-1] + (k, 4)).to(torch.int64)
-    return (w << torch.tensor([24, 16, 8, 0], device=b.device)).sum(-1)
+    return (w << _be32_shifts(b.device)).sum(-1)
 
 
 def words32_to_bytes(w: torch.Tensor) -> torch.Tensor:
-    sh = torch.tensor([24, 16, 8, 0], device=w.device)
-    out = ((w.unsqueeze(-1) >> sh) & 0xFF).to(torch.uint8)
+    out = ((w.unsqueeze(-1) >> _be32_shifts(w.device)) & 0xFF).to(torch.uint8)
     return out.reshape(w.shape[:-1] + (w.shape[-1] * 4,))
+
+
+@functools.lru_cache(maxsize=None)
+def _md_tail(msg_len: int, block: int, len_bytes: int, device) -> torch.Tensor:
+    pad_total = (-(msg_len + 1 + len_bytes)) % block + 1 + len_bytes
+    tail = np.zeros(pad_total, np.uint8)
+    tail[0] = 0x80
+    tail[-8:] = np.frombuffer((msg_len * 8).to_bytes(8, "big"), np.uint8)
+    return torch.as_tensor(tail, device=device)
 
 
 def _md_pad(data: torch.Tensor, msg_len: int, block: int, len_bytes: int) -> torch.Tensor:
     """Merkle–Damgård strengthening: 0x80, zeros, and the big-endian bit
     length in the trailing ``len_bytes`` (its bytes above the low eight
     stay zero), to a ``block``-byte multiple — shared by both widths."""
-    pad_total = (-(msg_len + 1 + len_bytes)) % block + 1 + len_bytes
-    tail = np.zeros(pad_total, np.uint8)
-    tail[0] = 0x80
-    tail[-8:] = np.frombuffer((msg_len * 8).to_bytes(8, "big"), np.uint8)
-    t = torch.as_tensor(tail, device=data.device).expand(data.shape[:-1] + (pad_total,))
-    return torch.cat([data, t], dim=-1)
+    t = _md_tail(msg_len, block, len_bytes, data.device)
+    return torch.cat([data, t.expand(data.shape[:-1] + t.shape)], dim=-1)
 
 
 def sha256_core(data: torch.Tensor, msg_len: int) -> torch.Tensor:

@@ -2,17 +2,22 @@
 can see it (the port's counterpart of the JAX package's
 ``perf/compile_watch.py``).
 
-The port compiles one thing: K0's CUDA library, built by nvcc at its first
-use in a process (``ops/mulmod.build``). That build reports here through
-the two-call ``begin`` / ``finish`` protocol; each finish records one
-ledger entry::
+The port compiles two kinds of thing: K0's CUDA library, built by nvcc
+at its first use in a process (``ops/mulmod.build``), and the EdDSA
+engine's CUDA graphs, one captured per function and argument shape
+(``engine/graphs``, the counterpart of XLA's per-shape executables).
+Both report here through the two-call ``begin`` / ``finish`` protocol;
+each finish records one ledger entry::
 
     {"engine": "mulmod", "shape": "<source digest>", "platform": "cuda",
      "compile_s": 4.1, "cache": "miss", "at": "..."}
+    {"engine": "eddsa.verify_signatures",
+     "shape": "uint8[16, 64],uint8[16, 32],uint8[16, 64]@cuda:0", ...}
 
 ``cache`` is ``hit`` when the shared library of that digest already
 existed (another process, or an earlier run, built it) and ``miss`` when
-this process ran nvcc. The entry is
+this process ran nvcc; a graph is always a ``miss`` (graphs live in the
+process that captured them). The entry is
 
 - persisted as ``COMPILE_LEDGER.json`` under ``set_ledger_dir`` (the
   daemon points it at its db dir), rewritten on every finish;
@@ -23,9 +28,10 @@ this process ran nvcc. The entry is
   but still booting publishes ``warming``.
 
 :func:`export_gauges` mirrors the summary into a metrics registry and
-adds K0's launch and plain-call counters (``ops/mulmod.py``): inside a
-daemon they are what shows the card at work. The JAX version's XLA cache
-probe and its ``COMPILE_SURFACE.json`` prediction have no counterpart.
+adds K0's launch and plain-call counters (``ops/mulmod.py``) and each
+graphed function's captures and replays: inside a daemon they are what
+shows the card at work. The JAX version's XLA cache probe and its
+``COMPILE_SURFACE.json`` prediction have no counterpart.
 """
 from __future__ import annotations
 
@@ -148,7 +154,11 @@ def mark_ready() -> None:
 
 def health_summary() -> Dict[str, object]:
     """The ``compile`` section of the health payload: warming/ready state,
-    hit/miss/seconds accounting and the most recent entry."""
+    hit/miss/seconds accounting, the most recent entry, and ``graphs``:
+    captures and replays per graphed function that has captured
+    (``engine/graphs.counts``)."""
+    from ..engine import graphs
+
     with _lock:
         ents = list(_entries)
         state = _state
@@ -160,13 +170,16 @@ def health_summary() -> Dict[str, object]:
         "total_compile_s": round(sum(e["compile_s"] for e in ents), 3),
         "last": ents[-1] if ents else None,
         "ledger": ledger_path(),
+        "graphs": {k: v for k, v in graphs.counts().items() if v["captures"]},
     }
 
 
 def export_gauges(metrics) -> None:
     """Mirror the summary into a ``MetricsRegistry`` as gauges, with K0's
     counters: ``k0.mulmod_launches[.n<width>]``,
-    ``k0.powmod_launches[.<mode>_n<width>]`` and ``k0.plain_calls``."""
+    ``k0.powmod_launches[.<mode>_n<width>]`` and ``k0.plain_calls``; and
+    per graphed function that has captured, ``graphs.captures.<fn>`` and
+    ``graphs.replays.<fn>``."""
     from ..ops import mulmod as K
 
     s = health_summary()
@@ -186,6 +199,9 @@ def export_gauges(metrics) -> None:
     for (mode, n), v in by_mode.items():
         metrics.gauge(f"k0.powmod_launches.{mode}_n{n}").set(float(v))
     metrics.gauge("k0.plain_calls").set(float(plain))
+    for name, c in s["graphs"].items():
+        metrics.gauge(f"graphs.captures.{name}").set(float(c["captures"]))
+        metrics.gauge(f"graphs.replays.{name}").set(float(c["replays"]))
 
 
 def reset() -> None:

@@ -56,6 +56,7 @@ from ...core import secp256k1 as sp
 from ...core.bignum import P256
 from ...core.fields import secp256k1_field
 from ...device import resolve
+from ...engine.graphs import no_capture
 from ...ops import hash_suite as hs
 from ...utils import tracing
 
@@ -1053,7 +1054,8 @@ class OTMtALeg:
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)  # mpcflow: host-ok — timing instrumentation, only when the caller passes timings
+            with no_capture():  # not while another thread captures a CUDA graph
+                torch.cuda.synchronize(self.device)  # mpcflow: host-ok — timing instrumentation, only when the caller passes timings
 
     def _run_multi_device(self, a, b_list, K, tag, z_raw, timings, transcript, t_total0):
         """Per chunk: the payload math, then :func:`_ot_chunk_device`. The

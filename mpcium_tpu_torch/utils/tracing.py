@@ -345,9 +345,15 @@ def set_mesh_devices(devices) -> None:
 
 
 def _sync(devices) -> None:
+    """Synchronize each CUDA device, outside any CUDA graph capture (a
+    device-wide synchronize while another thread captures would fail
+    both: ``engine/graphs.no_capture``)."""
+    from ..engine.graphs import no_capture
+
     for d in dict.fromkeys(tuple(devices) + _MESH_DEVICES):
         if d.type == "cuda":
-            torch.cuda.synchronize(d)
+            with no_capture():
+                torch.cuda.synchronize(d)
 
 
 def _tensor_devices(tree, out: list) -> list:

@@ -6,26 +6,33 @@ party entry point at that exact shape, on an explicit device, with
 throwaway dealer wallets (the Paillier ones on the committed 1024-bit
 fixture, with the GG18 domains it can carry, and every signature they
 make must verify). The JAX package warms to fill XLA's persistent
-cache; the port compiles one thing, K0's CUDA library (built at its
-first launch and cached on disk by source digest, ``ops/mulmod.build``),
-and nothing per shape. So "warm" here means the bucket has run once in
-this process on that device, which pays its first-use costs there: the
-device context and allocator, the per-modulus Barrett contexts and comb
-tables, the lazily built curve tables, and K0's build or load.
+cache. The port compiles K0's CUDA library (built at its first launch
+and cached on disk by source digest, ``ops/mulmod.build``) and, per
+shape, the EdDSA engine's CUDA graphs (``engine/graphs``), which live in
+the process that captured them. So "warm" here means the bucket has run
+once in this process on that device, which pays its first-use costs
+there: the device context and allocator, the per-modulus Barrett
+contexts and comb tables, the lazily built curve tables, K0's build or
+load, and the capture of the bucket's EdDSA graphs.
 
 The walk is budget-aware and failure-isolated, as in JAX: a deadline
 miss marks the remaining entries ``skipped`` (the daemon goes ready
 anyway: cold, but alive), a runner exception marks that entry
 ``failed`` without taking boot down, and an entry this process has
 already run on that device is ``already``. The report lands as
-``WARM_MANIFEST.json`` with JAX's keys and totals; ``cache`` is K0's
-build verdict (``hit`` / ``miss``, from ``perf/compile_watch``) where the
-entry launched K0, else ``"none"``, and ``unpredicted`` stays 0 (the
-port's shapes come from its own template table, not a static surface).
+``WARM_MANIFEST.json`` with JAX's keys and totals. Where an entry
+reached graphed functions (the EdDSA engine on CUDA), its row carries
+``graphs`` — ``hits``, the graphs it found captured and replayed, and
+``misses``, the graphs it captured — and ``cache`` is ``miss`` if it
+captured any, else ``hit``; the totals add those graph counts. Otherwise
+``cache`` is K0's build verdict (``hit`` / ``miss``, from
+``perf/compile_watch``) where the entry launched K0, else ``"none"``, and
+the totals count that verdict. ``unpredicted`` stays 0 (the port's
+shapes come from its own template table, not a static surface).
 
 No counterpart: ``configure_cache`` (it points XLA's persistent cache at
-a directory) and ``warm/aot.py`` (``jax.export`` artifacts). There is no
-compiled executable per shape to store; K0's library is already cached.
+a directory) and ``warm/aot.py`` (``jax.export`` artifacts): a CUDA graph
+cannot be stored across processes, and K0's library is already cached.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve
+from ..engine import graphs
 from ..perf import compile_watch
 from ..utils import log
 from . import manifest as wm
@@ -210,6 +218,14 @@ def _k0_launches() -> int:
         return K.launches + sum(K.powmod_launches_by_mode_width.values())
 
 
+def _graph_verdicts(before: Dict[tuple, int], after: Dict[tuple, int]) -> Tuple[int, int]:
+    """(hits, misses) between two ``graphs.snapshot()``: graphs that
+    were captured before and replayed since, graphs captured since."""
+    misses = sum(1 for k in after if k not in before)
+    hits = sum(1 for k, n in after.items() if k in before and n > before[k])
+    return hits, misses
+
+
 # -- the walk ----------------------------------------------------------------
 
 
@@ -257,6 +273,7 @@ def prewarm(
             totals["failed"] += 1
             continue
         k0_before, ledger_before = _k0_launches(), len(compile_watch.entries())
+        graphs_before = graphs.snapshot()
         t0 = now()
         try:
             runner(e, dev)
@@ -274,11 +291,19 @@ def prewarm(
             _RAN.add(key)
         k0 = next((le for le in reversed(compile_watch.entries()) if le["engine"] == "mulmod"),
                   None)
-        row["cache"] = k0["cache"] if k0 is not None and _k0_launches() > k0_before else "none"
-        if row["cache"] == "hit":
-            totals["hits"] += 1
-        elif row["cache"] == "miss":
-            totals["misses"] += 1
+        g_hits, g_misses = _graph_verdicts(graphs_before, graphs.snapshot())
+        if g_hits or g_misses:
+            row["graphs"] = {"hits": g_hits, "misses": g_misses}
+            row["cache"] = "miss" if g_misses else "hit"
+            totals["hits"] += g_hits
+            totals["misses"] += g_misses
+        else:
+            row["cache"] = (k0["cache"] if k0 is not None and _k0_launches() > k0_before
+                            else "none")
+            if row["cache"] == "hit":
+                totals["hits"] += 1
+            elif row["cache"] == "miss":
+                totals["misses"] += 1
         if k0 is not None and len(compile_watch.entries()) > ledger_before:
             row["compile_s"] = k0["compile_s"]  # K0 was built (or loaded) by this entry
     report = {

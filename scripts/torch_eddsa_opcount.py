@@ -11,6 +11,12 @@ except views and metadata ops, one warm sign of 2-of-3 Ed25519 over B
 seeded 32-byte messages, split at the engine's phase marks. Prints one
 JSON line: ops per phase, their sum, and the most frequent ops. Runs on
 the CPU by default (a count, not a time); imports nothing of JAX.
+
+With ``--device cuda`` the engine's graphed functions (``engine/graphs``)
+replay CUDA graphs captured in the first (warm) sign: a replay is one
+launch and no aten op, so the count is what the sign still dispatches
+from Python (input copies, output clones, the glue between rounds);
+``graph_replays`` counts the replays of the counted sign.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ def main() -> int:
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from mpcium_tpu_torch.engine import eddsa_batch as eb
+    from mpcium_tpu_torch.engine import graphs
     from mpcium_tpu_torch.utils import tracing
     from mpcium_tpu_torch.utils.rng import SeededStream
 
@@ -66,6 +73,7 @@ def main() -> int:
         per_phase[name] += counter.n
         counter.n = 0
 
+    graphs.reset_counts()
     tracing.PhaseTimer.mark, original = mark, tracing.PhaseTimer.mark
     try:
         with counter:
@@ -76,6 +84,7 @@ def main() -> int:
         "B": B, "cohorts": args.cohorts, "device": args.device,
         "ops_by_phase": dict(per_phase), "ops": sum(per_phase.values()),
         "top_ops": counter.by.most_common(12),
+        "graph_replays": sum(c["replays"] for c in graphs.counts().values()),
     }))
     return 0
 
