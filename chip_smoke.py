@@ -222,7 +222,8 @@ over an encrypted TCP broker, driven through ``RemoteCluster``):
     (both entries at both widths, every powmod mode of the path, no plain
     call) and stayed put around create and reshare, and at the end the
     ``compile`` section reads ready with the K0 build entry (cache hit or
-    miss). No result may be a timeout and no dead letter may arrive, and
+    miss) and one entry per captured graph, EdDSA and GG18 graphs both
+    among them. No result may be a timeout and no dead letter may arrive, and
     every daemon's warm report (``WARM_MANIFEST.json``) must show its
     three EdDSA buckets warmed (or already run) on the card, none failed
     or skipped.
@@ -290,8 +291,9 @@ their lines after phase 25's):
     backends; 12 entries): every entry warmed on ``cuda``, none failed
     or skipped, K0 launched by the two Paillier entries only (their
     ``cache`` is K0's build verdict), and at n=160 by both entries in
-    every powmod mode; the EdDSA engine's entry captured its graphs (its
-    ``graphs`` hits and misses); ``warm_s`` per entry and
+    every powmod mode; the EdDSA engine's entry and the GG18 engine's and
+    party's entries captured their graphs (their ``graphs`` hits and
+    misses; K0's verdict beside them as ``k0``); ``warm_s`` per entry and
     ``torch.cuda.memory_reserved()`` after the pass.
 
 The measurement tooling (the engines' phase spans, ``perf/profile.py``,
@@ -332,10 +334,11 @@ phase 19's child process between its lifecycle and phase 27:
 33. ot_host — (a) one OT-MtA leg at B (fixed base-OT keys, one seeded
     stream, two payload sets, ``resolve_chunks(B)`` chunks) through the
     serial three-round composition (the shape's first run, which pays
-    the allocator's warm-up), then the device route and the host route
-    once each: α, β and every verdict
-    byte-equal, and equal to the serial three-round composition; both
-    routes' ``total_s`` and ``checks_s``, the host route's ``host_s``,
+    the allocator's warm-up), then the routes in the turns of
+    OT_HOST_ORDER (device, host, host, device): α, β and every verdict
+    byte-equal across routes and across each route's two runs, and equal
+    to the serial three-round composition; both routes' ``total_s`` (and
+    their repeats') and ``checks_s``, the host route's ``host_s``,
     ``host_wait_s`` and ``device_wait_s``, the native build's seconds
     and the thread count it resolved. (b) Each hashing stage at the
     leg's chunk shapes, native against the card (``prg_expand`` /
@@ -384,11 +387,44 @@ before phase 26's):
     function, the captured keys and ``torch.cuda.memory_reserved()``;
     one capture per key.
 
+The GG18 engine's per-shape CUDA graphs (its 25 graphed counterparts of
+the JAX package's jitted curve and round blocks), spread over the lanes
+that end first: (a) at B = 1 and 16 in phase 24's child after phase 24,
+at 1,024 in the goldens' process after phase 34; (b), (c) and (d) in
+the main process after phase 31 ((b) on phase 4's signer); the main
+process prints the line after phase 24's:
+
+36. gg18_graphs — (a) each graphed function at B = 1, 16 and 1,024 on
+    the seeded inputs of ``utils/gg18_graphs_golden.calls``: its replay
+    must equal ``fn.eager`` byte for byte; the first call's seconds, the
+    replay's time (GRAPHS_REPLAYS back to back) and the eager body's,
+    each from CUDA events and the host clock, the key's pool bytes and
+    capture seconds. (b) The flagship engine sign (cell 1: phase 4's
+    signer, B wallets, cohorts 2, the 2048-bit fixture, full
+    ``Domains()``, quorum node0/node1, ``mta_impl="paillier"``; phase
+    4's signs are its warm-up): fresh digests once through graphs only
+    (the counters' deltas: replays, no capture) and once with every body
+    eager (no replay), under the same seeded stream: equal signatures,
+    all B verified on the host, K0 launched in both and no plain call;
+    ``phases_s`` of both. (c) The batched party
+    (``BatchedECDSASigningParty``, node0 + node1, the 1024-bit fixture
+    with the domains it carries: each party builds its comb tables in
+    python ints, 60–80 s a sign on the 2048-bit one) at
+    GG18_GRAPHS_PARTY_B three times under the same seeded streams:
+    warm-up, graphs only, eager; equal, agreeing and verified. (d) Three
+    threads replay ``_blk_final`` at B=16 ten times each with their own
+    inputs: each must get its serial result. The line carries the card's
+    name and power limit, and per process the counters per function, the
+    keys' capture seconds and pool bytes (one capture per key) and
+    ``torch.cuda.memory_reserved()``.
+
 Phases 5, 6, 7, 9, 15 and 16 (the JAX goldens on the card), then phases
-32, 26 and 34, run in that order on a spawned process of their own,
+32, 26 and 34 (and phase 36's rows at B=1,024), run in that order on a
+spawned process of their own,
 started after phase 3 beside phases 19, 24 and 25; each golden phase and
 phases 32 and 34 print their own lines, and the main process joins them
-after phase 31 with a ``goldens`` line (``t_start_s``, ``t_end_s``).
+after its part of phase 36 with a ``goldens`` line (``t_start_s``,
+``t_end_s``; the rows come after ``t_end_s``).
 
 Every host verification runs the port's python-int verifiers over all
 signatures, spread over a pool of worker processes (one per host core).
@@ -1491,6 +1527,289 @@ def check_graphs(rec: dict) -> None:
     if rec["failed_checks"]:
         raise AssertionError(f"graphs: {rec['failed_checks']}: {rec['mismatches']}, "
                              f"party {rec['party']}, concurrent {rec['concurrent']}")
+
+
+# ---------------------------------------------------------------------------
+# phase 36: the GG18 engine's per-shape CUDA graphs
+# ---------------------------------------------------------------------------
+
+GG18_GRAPHS_B = (1, 16, 1024)  # batch sizes of phase 36's replay-vs-eager rows
+GG18_GRAPHS_PARTY_B = 16
+GG18_GRAPHS_ENGINE_B = 1024  # cell 1: the flagship Paillier sign
+
+
+def _same_leaves(a, b) -> bool:
+    """Two outputs of a graphed function hold equal structure and tensors."""
+    import torch
+
+    from mpcium_tpu_torch.engine import graphs
+
+    la: list = []
+    lb: list = []
+    return graphs._flatten(a, la) == graphs._flatten(b, lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _gg18_counts() -> dict:
+    from mpcium_tpu_torch.engine import graphs
+
+    return {k: v for k, v in graphs.counts().items() if k.startswith("gg18.")}
+
+
+def gg18_engine_runs(signer, shares, seed: int, K, dev: str = "cuda") -> dict:
+    """Phase 36 (b) on a warm flagship signer (phase 4's: 2-of-3, quorum
+    node0/node1, the 2048-bit fixture, full ``Domains()``, B wallets;
+    its first sign built the comb tables and captured the graphs): fresh
+    digests under one seeded stream, once through graphs only and once
+    with every graphed body eager; K0's counters zeroed before each.
+    → the record."""
+    import numpy as np
+
+    from mpcium_tpu_torch.engine import graphs
+    from mpcium_tpu_torch.utils.rng import SeededStream
+
+    t_start = since_start()
+    B = signer.B
+    digests = np.random.default_rng(seed + 62).integers(0, 256, (B, 32), dtype=np.uint8)
+    runs = {}
+    for name, ctx in (("graphs", contextlib.nullcontext), ("eager", graphs.eager_bodies)):
+        signer.rng = SeededStream(seed + 63)
+        phases: dict = {}
+        c0 = _gg18_counts()
+        K.reset_counters()
+        t0 = time.perf_counter()
+        with ctx():
+            out = signer.sign(digests, phase_times=phases, cohorts=COHORTS)
+            _sync(dev)
+        runs[name] = {"sign_s": time.perf_counter() - t0, "phases_s": phases,
+                      "k0": _k0_json(_k0_counts(K)),
+                      "counts": _graph_count_delta(c0, _gg18_counts()), "out": out}
+    g, e = runs["graphs"]["out"], runs["eager"]["out"]
+    equal = all(np.array_equal(g[k], e[k]) for k in ("r", "s", "recovery", "ok"))
+    verified = verify_ecdsa([s.public_key for s in shares[0]], digests, g["r"], g["s"])
+    for r in runs.values():
+        r["ok_all"] = bool(r.pop("out")["ok"].all())
+    return {"B": B, "cohorts": COHORTS, **runs, "graphs_equal_eager": equal,
+            "verified": verified, "t_start_s": t_start, "t_end_s": since_start()}
+
+
+def gg18_engine_signer(B: int, seed: int, dev: str = "cuda", bits: int = 2048, dom=None):
+    """A flagship signer as phase 4 builds it (the ``bits``-bit fixture,
+    ``dom`` or the full ``Domains()``), warmed by one sign → (signer,
+    shares, first sign s), for :func:`gg18_engine_runs` outside
+    ``chip_smoke.py``'s main()."""
+    import numpy as np
+
+    from mpcium_tpu_torch.cluster import load_test_preparams
+    from mpcium_tpu_torch.engine import gg18_batch as gb
+    from mpcium_tpu_torch.utils.rng import SeededStream
+
+    shares = gb.dealer_keygen_secp_batch(B, UNIVERSE, 1, rng=SeededStream(seed + 60))
+    signer = gb.GG18BatchCoSigners(["node0", "node1"], shares[:2], load_test_preparams(bits),
+                                   dom=dom or gb.Domains(), rng=SeededStream(seed + 61),
+                                   mta_impl="paillier", device=dev)
+    t0 = time.perf_counter()
+    signer.sign(np.random.default_rng(seed + 64).integers(0, 256, (B, 32), dtype=np.uint8),
+                cohorts=COHORTS)
+    _sync(dev)
+    return signer, shares, time.perf_counter() - t0
+
+
+def _gg18_party_runs(B: int, seed: int, K, dev: str) -> dict:
+    """2-of-3 ``BatchedECDSASigningParty`` (node0, node1; the 1024-bit
+    fixture with the domains it carries, as the warm pass signs) over B
+    dealer wallets three times under the same seeded streams: a warm-up,
+    graphs only, every body eager. Every party builds its comb tables in
+    python ints at its first sign (60–80 s a sign at B=16 on the 2048-bit
+    fixture, PR 19's call A), so the 1024-bit one keeps this short."""
+    import numpy as np
+
+    from mpcium_tpu_torch.cluster import load_test_preparams
+    from mpcium_tpu_torch.engine import gg18_batch as gb
+    from mpcium_tpu_torch.engine import graphs
+    from mpcium_tpu_torch.protocol.ecdsa.batch_signing import BatchedECDSASigningParty
+    from mpcium_tpu_torch.protocol.runner import run_protocol
+    from mpcium_tpu_torch.utils.rng import SeededStream
+    from mpcium_tpu_torch.warm.prewarm import _FIXTURE_DOMAINS
+
+    quorum = ["node0", "node1"]
+    dom = gb.Domains(**_FIXTURE_DOMAINS)
+    shares = gb.dealer_keygen_secp_batch(B, UNIVERSE, 1, rng=SeededStream(seed + 70),
+                                         preparams=load_test_preparams(1024))
+    digests = [r.tobytes() for r in np.random.default_rng(seed + 71).integers(
+        0, 256, (B, 32), dtype=np.uint8)]
+    runs = {}
+    for name, ctx in (("warm", contextlib.nullcontext), ("graphs", contextlib.nullcontext),
+                      ("eager", graphs.eager_bodies)):
+        parties = {pid: BatchedECDSASigningParty(f"chip-gg18-graphs-{seed}", pid, quorum,
+                                                 shares[i], digests, dom=dom,
+                                                 rng=SeededStream(seed + 72 + i),
+                                                 cohorts=COHORTS, device=dev)
+                   for i, pid in enumerate(quorum)}
+        c0 = _gg18_counts()
+        K.reset_counters()
+        t0 = time.perf_counter()
+        with ctx():
+            run_protocol(parties)
+            _sync(dev)
+        res = [parties[p].result for p in quorum]
+        runs[name] = {"sign_s": time.perf_counter() - t0, "k0": _k0_json(_k0_counts(K)),
+                      "counts": _graph_count_delta(c0, _gg18_counts()),
+                      "ok_all": all(bool(r["ok"].all()) for r in res),
+                      "agree": all(np.array_equal(res[0][k], r[k]) for r in res
+                                   for k in ("r", "s", "ok")),
+                      "out": res[0]}
+    g, e = runs["graphs"]["out"], runs["eager"]["out"]
+    equal = all(np.array_equal(g[k], e[k]) and np.array_equal(runs["warm"]["out"][k], g[k])
+                for k in ("r", "s", "recovery", "ok"))
+    verified = verify_ecdsa([s.public_key for s in shares[0]], digests, g["r"], g["s"])
+    for r in runs.values():
+        r.pop("out")
+    return {"B": B, "fixture_bits": 1024, **runs, "graphs_equal_eager": equal,
+            "verified": verified}
+
+
+def gg18_graph_rows(seed: int, dev: str = "cuda", bs=GG18_GRAPHS_B) -> dict:
+    """Phase 36 (a) in this process: each of the GG18 engine's 25 graphed
+    functions at each B of ``bs`` on the seeded inputs of
+    ``utils/gg18_graphs_golden.calls`` (B = 1 and 16 in phase 24's
+    child, 1,024 in the goldens' process): its replay must equal
+    ``fn.eager``; first call, replay and eager times, the key's pool and
+    capture seconds; this process's captures and keys. → a part of the
+    phase record."""
+    from mpcium_tpu_torch.engine import graphs
+    from mpcium_tpu_torch.utils import gg18_graphs_golden as g18
+
+    t_start = since_start()
+    fns, pkg = g18.port_fns(), g18.port_pkg(dev)
+    c_start = _gg18_counts()
+    rows, bad = [], []
+    for B in bs:
+        for name, args in g18.calls(B, seed + B):
+            fn, a = fns[name], g18.to_args(args, pkg)
+            t0 = time.perf_counter()
+            fn(*a)
+            _sync(dev)
+            first_s = time.perf_counter() - t0
+            replay_ms, replay_host_ms = _timed_calls(lambda: fn(*a), GRAPHS_REPLAYS, dev)
+            out: list = []
+            eager_ms, eager_host_ms = _timed_calls(lambda: out.append(fn.eager(*a)), 1, dev)
+            same = _same_leaves(fn(*a), out[0])
+            if not same:
+                bad.append(f"{name} B={B}")
+            entry = fn.graphs.entries.get(graphs.call_key(fn.graphs.name, tuple(a), {})[0])
+            rows.append({"fn": name, "B": B, "equal": same, "first_call_s": first_s,
+                         "replay_ms": replay_ms, "replay_host_ms": replay_host_ms,
+                         "eager_ms": eager_ms, "eager_host_ms": eager_host_ms,
+                         "pool_bytes": entry.pool_bytes if entry else None,
+                         "capture_s": entry.capture_s if entry else None})
+    return {"B": list(bs), "rows": rows, "mismatches": bad,
+            "counts": _graph_count_delta(c_start, _gg18_counts()), **_gg18_keys(dev),
+            "t_start_s": t_start, "t_end_s": since_start()}
+
+
+def _gg18_keys(dev: str) -> dict:
+    """This process's GG18 keys: captures against keys (one each), their
+    capture seconds and pools, the card's reserved memory."""
+    import torch
+
+    from mpcium_tpu_torch.engine import graphs
+
+    keys = [r for r in graphs.entries() if r["fn"].startswith("gg18.")]
+    return {"captures": sum(c["captures"] for c in _gg18_counts().values()),
+            "entries": len(keys), "capture_s_total": sum(r["capture_s"] for r in keys),
+            "pool_bytes_total": sum(r["pool_bytes"] for r in keys),
+            "memory_reserved": torch.cuda.memory_reserved() if dev == "cuda" else None}
+
+
+def gg18_party_threads(seed: int, K, dev: str = "cuda",
+                       party_b: int = GG18_GRAPHS_PARTY_B) -> dict:
+    """Phase 36 (c) and (d) in this process (the main one, after (b)):
+    the batched party at ``party_b`` through graphs and eager, then three
+    threads replaying ``_blk_final`` at B=16 with their own inputs, each
+    held to its serial result. → a part of the phase record."""
+    import threading
+
+    from mpcium_tpu_torch.engine import gg18_batch as gb
+    from mpcium_tpu_torch.utils import gg18_graphs_golden as g18
+
+    t_start = since_start()
+    party = _gg18_party_runs(party_b, seed, K, dev)
+    pkg = g18.port_pkg(dev)
+    inputs = [g18.to_args(dict(g18.calls(16, seed + 100 + i))["_blk_final"], pkg)
+              for i in range(3)]
+    serial = [gb._blk_final(*a) for a in inputs]
+    errors: list = []
+
+    def replayer(i: int) -> None:
+        for _ in range(10):
+            if not _same_leaves(gb._blk_final(*inputs[i]), serial[i]):
+                errors.append(i)
+
+    threads = [threading.Thread(target=replayer, args=(i,)) for i in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    return {"party": party,
+            "concurrent": {"threads": 3, "calls_each": 10, "fn": "_blk_final", "B": 16,
+                           "errors": errors, "stuck": [t.name for t in threads if t.is_alive()]},
+            **_gg18_keys(dev), "t_start_s": t_start, "t_end_s": since_start()}
+
+
+def gg18_graphs_finish(rows: list, party_threads: dict, engine: dict, dev: str = "cuda") -> dict:
+    """Phase 36's record from its parts, (a)'s ``rows`` (one per process),
+    (c) and (d), and (b) the engine sign (:func:`gg18_engine_runs`, run
+    in the process that owns the warm signer), with ``failed_checks``."""
+    on_card = dev == "cuda"
+    party = party_threads["party"]
+    conc = party_threads["concurrent"]
+
+    def replay_only(run) -> bool:
+        c = run["counts"].values()
+        return not any(x["captures"] for x in c) and (not on_card or any(
+            x["replays"] for x in c))
+
+    def eager_only(run) -> bool:
+        return not any(x["captures"] or x["replays"] for x in run["counts"].values())
+
+    def k0_ok(run) -> bool:
+        k = run["k0"]
+        return k["plain_calls"] == 0 and k["launches"] > 0 if on_card else True
+
+    mismatches = [m for part in rows for m in part["mismatches"]]
+    rec = {"phase": "gg18_graphs", "device": dev, "nvidia_smi": smi() if on_card else None,
+           "B": [b for part in rows for b in part["B"]],
+           "rows": [r for part in rows for r in part["rows"]], "mismatches": mismatches,
+           "rows_parts": [{k: v for k, v in part.items() if k not in ("rows", "mismatches")}
+                          for part in rows],
+           "engine": engine, **party_threads}
+    rec["failed_checks"] = [c for c, b in (
+        ("every replay equals its eager body", mismatches),
+        ("the engine sign verifies and equals its eager run",
+         not (engine["graphs"]["ok_all"] and engine["eager"]["ok_all"])
+         or engine["verified"] != engine["B"] or not engine["graphs_equal_eager"]),
+        ("the engine's graphs run replays only, its eager run none",
+         not replay_only(engine["graphs"]) or not eager_only(engine["eager"])),
+        ("K0 launches and no plain call in the engine sign",
+         not (k0_ok(engine["graphs"]) and k0_ok(engine["eager"]))),
+        ("the party sign verifies and agrees",
+         not all(party[k]["ok_all"] and party[k]["agree"] for k in ("warm", "graphs", "eager"))
+         or party["verified"] != party["B"] or not party["graphs_equal_eager"]),
+        ("the party's graphs run replays only, its eager run none",
+         not replay_only(party["graphs"]) or not eager_only(party["eager"])),
+        ("concurrent replays give the serial results", conc["errors"] or conc["stuck"]),
+        ("one capture per key in each process",
+         any(p["captures"] != p["entries"] for p in rows + [party_threads])),
+    ) if b]
+    return rec
+
+
+def check_gg18_graphs(rec: dict) -> None:
+    if rec["failed_checks"]:
+        raise AssertionError(f"gg18_graphs: {rec['failed_checks']}: {rec['mismatches']}, "
+                             f"engine {rec['engine']}, party {rec['party']}, "
+                             f"concurrent {rec['concurrent']}")
 
 
 def _k0_counts(K):
@@ -2655,9 +2974,10 @@ def serving_finish(res: dict, extra: dict, phase: str = "serving") -> None:
 _SERVING_POOL = None
 
 
-def _serving_task(W: int, seed: int) -> dict:
+def _serving_task(W: int, seed: int, gg18_rows: bool = True) -> dict:
     """Phase 24 in a process of its own (the card is shared with the main
-    process, which keeps its own K0 counters)."""
+    process, which keeps its own K0 counters), then phase 36's rows at B
+    = 1 and 16 there: the serving lane ends first."""
     import torch
 
     from mpcium_tpu_torch.ops import mulmod as K
@@ -2668,6 +2988,8 @@ def _serving_task(W: int, seed: int) -> dict:
     res = serving_run(W, seed, K)
     res["record"].update(phase_s=time.perf_counter() - t0, t_start_s=t_start,
                          t_end_s=since_start())
+    if gg18_rows:
+        res["gg18_rows"] = gg18_graph_rows(seed, bs=(1, 16))
     return res
 
 
@@ -2684,8 +3006,10 @@ def join_serving(future, t_submit: float) -> dict:
     res = future.result()
     wait_s = time.perf_counter() - t0
     _SERVING_POOL.shutdown()
-    serving_finish(res, {"overlapped": True, "join_wait_s": wait_s,
-                         "since_submit_s": time.perf_counter() - t_submit})
+    extra = {"overlapped": True, "join_wait_s": wait_s,
+             "since_submit_s": time.perf_counter() - t_submit}
+    serving_finish(res, extra)
+    res["extra"] = extra
     return res
 
 
@@ -2747,8 +3071,9 @@ def deployment_run(W: int, seed: int, dev=None, root: Path = None) -> dict:
     declines, K0's gauges grow on every node across each sign stage (both
     entries at both widths, every powmod mode of the path) with no plain
     call and stay put around create and reshare, the compile section reads
-    ready with the K0 build and the EdDSA graphs' captures (no other
-    entry), node0's flight recorder is valid Chrome JSON,
+    ready with the K0 build and the EdDSA and GG18 graphs' captures (no
+    other entry; both families captured), node0's flight recorder is
+    valid Chrome JSON,
     and every process exits 0 on SIGTERM within 30 s. On the CPU
     (``dev="cpu"``, a rehearsal) the signs must reach K0's plain versions
     and never the kernel, and no build is ledgered. → the phase record and
@@ -2864,8 +3189,9 @@ def deployment_run(W: int, seed: int, dev=None, root: Path = None) -> dict:
         for nid, c in compile_.items():
             # K0's build is the one ledger entry that is not a graph capture
             graphs_ = sum(g["captures"] for g in c["graphs"].values())
+            families = {k.split(".")[0] for k in c["graphs"]}
             if (c["state"] != "ready" or (c["compiles"] - graphs_ == 1) != on_card
-                    or bool(graphs_) != on_card):
+                    or bool(graphs_) != on_card or on_card and families != {"eddsa", "gg18"}):
                 raise AssertionError(f"deployment: {nid}'s compile section {c}")
         record = {
             "phase": "deployment", "nodes": dep.nodes, "threshold": 1, "wallets": W,
@@ -3095,9 +3421,9 @@ def warm_run(K, dev: str = "cuda") -> dict:
     1024-bit fixture): every entry must warm on the device, none fail or
     be skipped; the entries that launch K0 (the Paillier MtA) report its
     build verdict, the rest ``none``, and K0 must have launched both
-    entries at n=160 in every mode of POWMOD_WARM; the EdDSA entry must
-    have captured graphs (its ``cache`` is their verdict). → the phase
-    record."""
+    entries at n=160 in every mode of POWMOD_WARM; the EdDSA entry and
+    the GG18 entries must have captured graphs (an entry's ``cache`` is
+    then their verdict, and K0's is its ``k0``). → the phase record."""
     import torch
 
     from mpcium_tpu_torch.warm import manifest as wm
@@ -3111,23 +3437,30 @@ def warm_run(K, dev: str = "cuda") -> dict:
     rec = {"phase": "warm", "device": dev, "budget_s": WARM_BUDGET_S,
            "wall_s": time.perf_counter() - t0, "totals": rep["totals"], "key": rep["key"],
            "entries": [{k: r.get(k) for k in ("engine", "shape", "status", "warm_s", "cache",
-                                                "compile_s", "device", "reason")}
+                                                "k0", "compile_s", "device", "reason")}
                        for r in rep["results"]],
            "k0": _k0_json(k0)}
     rec["memory_reserved"] = torch.cuda.memory_reserved() if dev == "cuda" else None
     t = rep["totals"]
     k0_engines = {r["engine"] for r in rep["results"]
-                  if r.get("cache") not in (None, "none") and "graphs" not in r}
+                  if (r.get("k0") if "graphs" in r else r.get("cache")) not in (None, "none")}
     want_k0 = {"gg18.sign", "party.ecdsa"} if dev != "cpu" else set()
     rec["k0_entries"] = sorted(k0_engines)
-    rec["graph_entries"] = {r["engine"]: r["graphs"] for r in rep["results"] if "graphs" in r}
+    rec["graph_entries"] = {f"{r['engine']}|{r['shape']}": r["graphs"]
+                            for r in rep["results"] if "graphs" in r}
+
+    def captured(*engines) -> int:
+        return sum(g["misses"] for k, g in rec["graph_entries"].items()
+                   if k.split("|")[0] in engines)
+
     rec["failed_checks"] = [c for c, bad in (
         ("every entry warmed", t["warmed"] != t["entries"] or t["entries"] != 12),
         ("nothing failed or skipped", t["failed"] or t["skipped"]),
         ("on the device", any(r["device"] != str(pw.resolve(dev)) for r in rep["results"])),
         ("K0 on the Paillier entries", k0_engines != want_k0),
-        ("the EdDSA entry captures its graphs", dev != "cpu" and not rec["graph_entries"].get(
-            "eddsa.sign", {}).get("misses")),
+        ("the EdDSA entry captures its graphs", dev != "cpu" and not captured("eddsa.sign")),
+        ("the GG18 entries capture theirs", dev != "cpu" and not captured("gg18.sign",
+                                                                           "party.ecdsa")),
         ("K0 at n=160 in every mode", dev != "cpu" and not (
             k0["mulmod_by_width"].get(160) and all(
                 k0["powmod_by_mode_width"].get(key) for key in POWMOD_WARM)))) if bad]
@@ -3182,12 +3515,12 @@ def join_boot(future, t_submit: float) -> dict:
 _GOLDEN_POOL = None
 
 
-def _goldens_task() -> dict:
+def _goldens_task(seed: int) -> dict:
     """The golden phases, the micro-benches and the chaos drills need
     nothing of the main process; each golden phase prints its own line
     as it ends, the drills' record is returned (the main process prints
     it beside the soak's). The drills log at WARNING (their faults log by
-    design)."""
+    design). Phase 36's rows at B=1,024 run last."""
     import torch
 
     from mpcium_tpu_torch.utils import log
@@ -3204,25 +3537,28 @@ def _goldens_task() -> dict:
     log.init(level="WARNING")
     chaos = run_chaos(CHAOS_SEED)
     run_bench_cli()
-    return {"t_start_s": t_start, "t_end_s": since_start(), "chaos": chaos}
+    t_end = since_start()
+    rows = gg18_graph_rows(seed, bs=(1024,))
+    return {"t_start_s": t_start, "t_end_s": t_end, "chaos": chaos, "gg18_rows": rows}
 
 
-def start_goldens():
+def start_goldens(seed: int):
     global _GOLDEN_POOL
     _GOLDEN_POOL = spawned_pool()
-    return _GOLDEN_POOL.submit(_goldens_task), time.perf_counter()
+    return _GOLDEN_POOL.submit(_goldens_task, seed), time.perf_counter()
 
 
-def join_goldens(future, t_submit: float) -> dict:
-    """Wait for the goldens' process → phase 26's record."""
+def join_goldens(future, t_submit: float):
+    """Wait for the goldens' process → (phase 26's record, phase 36's rows
+    at B=1,024)."""
     t0 = time.perf_counter()
     res = future.result()
     _GOLDEN_POOL.shutdown()
-    chaos = res.pop("chaos")
+    chaos, rows = res.pop("chaos"), res.pop("gg18_rows")
     emit({"phase": "goldens", "phases": [5, 6, 7, 9, 15, 16, 32, 26, 34], **res,
           "join_wait_s": time.perf_counter() - t0,
           "since_submit_s": time.perf_counter() - t_submit})
-    return chaos
+    return chaos, rows
 
 
 # ---------------------------------------------------------------------------
@@ -3464,6 +3800,8 @@ def run_microbench(samples: int = 30, dev: str = "cuda") -> None:
 OT_HOST_SETS = 11  # one more than MAX_PAYLOAD_SETS: the host route by count
 OT_HOST_SMALL_B = 8
 OT_HOST_REPS = 5  # timed calls per hashing stage; the median is printed
+# the leg's routes in turns; each route's second run must give its first's bytes
+OT_HOST_ORDER = ("device", "host", "host", "device")
 
 
 @contextlib.contextmanager
@@ -3647,11 +3985,15 @@ def run_ot_host(B: int, seed: int, K, dev: str = "cuda") -> None:
     # the host route, each from the same keys and stream
     a, bs = _ot_scalars(B, 2, seed + 31)
     serial = _leg_serial(_ot_host_leg(seed + 32, dev), a, bs, dev)
-    runs = {}
-    for route in ("device", "host"):
+    runs, repeats = {}, {}
+    for route in OT_HOST_ORDER:
         leg, tm = _ot_host_leg(seed + 32, dev), {}
         with _ot_route("0" if route == "host" else "1"):
-            runs[route] = _leg_run(leg, a, bs, dev, tm) + (tm,)
+            run = _leg_run(leg, a, bs, dev, tm) + (tm,)
+        if route in runs:
+            repeats[route] = run
+        else:
+            runs[route] = run
     dev_shares, dev_verdicts, _ = runs["device"]
     host_shares, host_verdicts, _ = runs["host"]
     leg_ok = {
@@ -3661,6 +4003,10 @@ def run_ot_host(B: int, seed: int, K, dev: str = "cuda") -> None:
         "host_equals_serial": _same_shares(host_shares, serial),
         "reconstructs": _reconstructs(host_shares, a, bs) == 2 * B,
     }
+    if repeats:  # repeated runs of a route give the same bytes
+        leg_ok["repeats_equal"] = all(
+            _same_shares(r[0], runs[route][0]) and r[1] == runs[route][1]
+            for route, r in repeats.items())
 
     # (b) the hashing stages at the leg's chunk shapes
     stages = _hash_stages(_ot_host_leg(seed + 32, dev), B, chunks, dev)
@@ -3699,9 +4045,10 @@ def run_ot_host(B: int, seed: int, K, dev: str = "cuda") -> None:
     emit({
         "phase": "ot_host", "B": B, "chunks": chunks, "seed": seed,
         "native_build_s": native_build_s, "native_threads": native.threads(),
-        "leg": {**leg_ok, "sets": 2, "order": "serial, device, host",
+        "leg": {**leg_ok, "sets": 2, "order": ", ".join(("serial",) + OT_HOST_ORDER),
                 **{f"{route}_{key}": runs[route][2][key]
                    for route in ("device", "host") for key in ("total_s", "checks_s")},
+                **{f"{route}_repeat_total_s": r[2]["total_s"] for route, r in repeats.items()},
                 **{key: runs["host"][2][key]
                    for key in ("host_s", "host_wait_s", "device_wait_s")}},
         "stages": stages,
@@ -3771,7 +4118,7 @@ def main() -> int:
     life_future, soak_future, t_life = start_lifecycle(LIFECYCLE_B, args.seed, args.batch)
     serving_future, t_serving = start_serving(SERVING_W, args.seed)
     deploy_future, boot_future, t_deploy = start_deployment(DEPLOY_W, args.seed)
-    golden_future, t_golden = start_goldens()
+    golden_future, t_golden = start_goldens(args.seed)
     by_width, by_mode, shares, signer, measured = run_slice(args.batch, args.seed, pre, K)
     emit({
         "phase": "wrapper_host", "note": "launches in the warm sign x host ms "
@@ -3795,9 +4142,14 @@ def main() -> int:
     run_session_batch_sign(session, args.seed, K)
     run_profile(signer, shares, args.batch, args.seed, K, measured)
     run_ot_profile(ot_signer, shares, args.batch, args.seed)
-    chaos = join_goldens(golden_future, t_golden)
+    g36_engine = gg18_engine_runs(signer, shares, args.seed, K)
+    g36_party = gg18_party_threads(args.seed, K)
+    chaos, g36_rows = join_goldens(golden_future, t_golden)
     life = join_lifecycle(life_future, t_life)
     serving = join_serving(serving_future, t_serving)
+    g36 = gg18_graphs_finish([serving["gg18_rows"], g36_rows], g36_party, g36_engine)
+    emit({**g36, **serving["extra"]})
+    check_gg18_graphs(g36)
     join_deployment(deploy_future, t_deploy, serving)
     warm_k0 = join_boot(boot_future, t_deploy)
     join_chaos_soak(chaos, soak_future, t_life)

@@ -87,14 +87,15 @@ def add(a: SecpPointJ, b: SecpPointJ) -> SecpPointJ:
     dependency layers), the sums likewise."""
     F = _field(a.X)
     P1, P2 = _stack(a.X, a.Y, a.Z), _stack(b.X, b.Y, b.Z)
-    rot = [1, 2, 0]
+    # rows rotated (1, 2, 0) by a roll: an index list would upload from the
+    # host on every call, which a CUDA graph capture forbids
     # t0 t1 t2 = X1X2 Y1Y2 Z1Z2; t3 t4 x3 = (X1+Y1)(X2+Y2) (Y1+Z1)(Y2+Z2)
     # (Z1+X1)(Z2+X2)
     m = F.mul(
-        torch.cat([P1, F.add(P1, P1[rot])]), torch.cat([P2, F.add(P2, P2[rot])])
+        torch.cat([P1, F.add(P1, P1.roll(-1, 0))]), torch.cat([P2, F.add(P2, P2.roll(-1, 0))])
     )
     # t3 - (t0+t1), t4 - (t1+t2), x3 - (t2+t0)
-    T3, T4, Y3 = F.sub(m[3:], F.add(m[:3], m[rot])).unbind(0)
+    T3, T4, Y3 = F.sub(m[3:], F.add(m[:3], m[:3].roll(-1, 0))).unbind(0)
     t0, t1 = m[0], m[1]
     t0x3 = F.mul_small(t0, 3)
     t2b, y3b = F.mul_small(_stack(m[2], Y3), _B3).unbind(0)
@@ -105,7 +106,7 @@ def add(a: SecpPointJ, b: SecpPointJ) -> SecpPointJ:
     )
     # X3 = t3·t1 - t4·y3; Y3 = t1·z3 + y3·t0; Z3 = z3·t4 + t0·t3
     X3 = F.sub(M[1], M[0])
-    Y3, Z3 = F.add(M[[3, 5]], M[[2, 4]]).unbind(0)
+    Y3, Z3 = F.add(M[3::2], M[2:5:2]).unbind(0)
     return SecpPointJ(X3, Y3, Z3)
 
 
@@ -237,7 +238,7 @@ def equal(a: SecpPointJ, b: SecpPointJ) -> torch.Tensor:
     """Batch equality: cross-multiplied, Z-invariant, identity-aware."""
     F = _field(a.X)
     m = F.mul(_stack(a.X, b.X, a.Y, b.Y), _stack(b.Z, a.Z, b.Z, a.Z))
-    d = F.sub(m[[0, 2]], m[[1, 3]])  # X1Z2 - X2Z1, Y1Z2 - Y2Z1
+    d = F.sub(m[0::2], m[1::2])  # X1Z2 - X2Z1, Y1Z2 - Y2Z1
     zero = torch.all(F.canonical(torch.cat([d, _stack(a.Z, b.Z)])) == 0, -1)
     ex, ey, za, zb = zero.unbind(0)
     return torch.where(za | zb, za == zb, ex & ey)
@@ -277,7 +278,7 @@ def decompress(b: torch.Tensor) -> Tuple[SecpPointJ, torch.Tensor]:
     F = secp256k1_field(b.device)
     tag = b[..., 0].to(torch.int64)
     x = bn.bytes_to_limbs_le(torch.flip(b[..., 1:], dims=(-1,)), PROF, PROF.n_limbs)
-    p_l = torch.as_tensor(bn.to_limbs(hm.SECP_P, PROF), device=b.device)
+    p_l = bn.const_limbs(hm.SECP_P, PROF, b.device)
     ok = (bn.compare(x, p_l) < 0) & ((tag == 2) | (tag == 3))
     rhs = F.add(F.mul(F.square(x), x), F.const(7, x.shape[:-1]))
     y, has_root = _sqrt_ctx(b.device).sqrt(rhs)

@@ -30,6 +30,7 @@ a strict per-session fallback; ``strict``: per session).
 """
 from __future__ import annotations
 
+import functools
 import os
 import secrets
 from dataclasses import dataclass
@@ -53,6 +54,7 @@ from ..protocol.ecdsa import mta_ot
 from ..utils import tracing
 from . import pipeline as pl
 from .abort import CohortAbort
+from .graphs import graphed
 
 Q = hm.SECP_N
 SCALAR_BITS = 256
@@ -123,12 +125,18 @@ def rand_bit_tensor(batch: int, bits: int, rng=secrets, device=None) -> torch.Te
     return torch.as_tensor(arr.astype(np.int32), device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def _tag_row(tag: bytes, device: torch.device) -> torch.Tensor:
+    """The tagged prefix's bytes, uploaded once per (tag, device) and
+    shared (a per-call upload would stall a graph capture); read-only."""
+    return torch.tensor(list(_TAG + tag), dtype=torch.uint8, device=device)
+
+
 def dev_hash(tag: bytes, *rows: torch.Tensor) -> torch.Tensor:
     """Batched SHA-256 on the device over tag ‖ fixed-width rows → (B, 32)."""
     rows = [r.to(torch.uint8) for r in rows]
     B = rows[0].shape[0]
-    t = torch.tensor(list(_TAG + tag), dtype=torch.uint8, device=rows[0].device)
-    t = t.expand(B, -1)
+    t = _tag_row(tag, rows[0].device).expand(B, -1)
     return dev_sha256(torch.cat([t] + rows, dim=-1))
 
 
@@ -136,6 +144,7 @@ def _bits_of(x: torch.Tensor, prof: bn.LimbProfile, n_bits: int) -> torch.Tensor
     return bn.limbs_to_bits(x, prof, n_bits)
 
 
+@graphed("gg18")
 def _int_mul_add(e, m, add, prof) -> torch.Tensor:
     """e·m + add over plain integers, normalized to the width of ``prof``."""
     prod = mm.mul_pair(e, m)
@@ -147,6 +156,7 @@ def _eq_all(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.all(a == b, dim=-1)
 
 
+@graphed("gg18")
 def _bits_pack(bits: torch.Tensor, prof: bn.LimbProfile) -> torch.Tensor:
     """(..., n_bits) LSB-first bit tensor → normalized limbs in prof."""
     return bn._bits_to_groups(bits.to(torch.int64), prof.bits, prof.n_limbs).to(I32)
@@ -526,11 +536,13 @@ def _bits256(k: torch.Tensor) -> torch.Tensor:
     return bn.limbs_to_bits(k, P256, SCALAR_BITS)
 
 
+@graphed("gg18")
 def _scalar_from_wide_bytes(b: torch.Tensor) -> torch.Tensor:
     """(..., 40) uniform bytes → canonical scalar mod q (bias 2^-64)."""
     return _ring(b).reduce(bn.bytes_to_limbs_le(b, P256, 30))
 
 
+@graphed("gg18")
 def _base_mul_compressed(k_limbs: torch.Tensor):
     pt = sp.base_mul(_bits256(k_limbs))
     return pt, sp.compress(pt)
@@ -547,6 +559,7 @@ def _scalar_to_prof(k_limbs: torch.Tensor, prof: bn.LimbProfile) -> torch.Tensor
     return bn.bytes_to_limbs_le(b, prof, prof.n_limbs)
 
 
+@graphed("gg18")
 def _mod_q_from_limbs(x: torch.Tensor, prof: bn.LimbProfile) -> torch.Tensor:
     """Reduce an arbitrary-width non-negative value mod q → 12-bit curve
     limbs: v = Σ chunk_i · 2^(176·i) mod q, folded from the top."""
@@ -569,16 +582,31 @@ def _idx_row(i: int, B: int, device) -> torch.Tensor:
     return torch.full((B, 1), i, dtype=torch.uint8, device=device)
 
 
+@graphed("gg18")
 def _blk_gamma(gamma_i, blind_i, idx):
     """Γ_i = γ_i·G, compressed + hash-committed (round 1, per party)."""
     pt, comp = _base_mul_compressed(gamma_i)
     return pt, comp, dev_hash(b"gamma", idx, blind_i, comp)
 
 
+@graphed("gg18")
 def _blk_gamma_check(blind_i, comp_i, idx, commit_i):
     return _eq_all(dev_hash(b"gamma", idx, blind_i, comp_i), commit_i)
 
 
+@graphed("gg18")
+def _blk_point_add(a: sp.SecpPointJ, b: sp.SecpPointJ) -> sp.SecpPointJ:
+    """ΣΓ, ΣV, ΣA, ΣU, ΣT: one complete addition."""
+    return sp.add(a, b)
+
+
+@graphed("gg18")
+def _blk_point_eq(a: sp.SecpPointJ, b: sp.SecpPointJ) -> torch.Tensor:
+    """ΣU ?= ΣT (phase 5D) → (B,) bool."""
+    return sp.equal(a, b)
+
+
+@graphed("gg18")
 def _blk_R(delta, Gamma_sum):
     """δ⁻¹·ΣΓ, r = R_x mod q, recovery metadata, degeneracy flags."""
     ring = _ring(delta)
@@ -591,7 +619,7 @@ def _blk_R(delta, Gamma_sum):
     r = ring.reduce(Rx)
     ok = ok & ~torch.all(r == 0, dim=-1)
     y_aff = F.canonical(F.mul(R_pt.Y, zi))
-    n_l = torch.as_tensor(bn.to_limbs(Q, P256), device=delta.device)
+    n_l = bn.const_limbs(Q, P256, delta.device)
     rec = (y_aff[..., 0] & 1) | torch.where(bn.compare(Rx, n_l) >= 0, 2, 0).to(I32)
     return ok, R_pt, r, rec
 
@@ -606,6 +634,7 @@ def _hash_scalar(tag: bytes, *rows: torch.Tensor) -> torch.Tensor:
 # distributed party; the in-process fabric composes them ----------------
 
 
+@graphed("gg18")
 def _blk_schnorr_prove(kpok_i, gamma_i, comp_i, idx):
     """Schnorr PoK of γ_i, prover side → (A_comp, s_pok)."""
     ring = _ring(kpok_i)
@@ -614,6 +643,7 @@ def _blk_schnorr_prove(kpok_i, gamma_i, comp_i, idx):
     return A_comp, ring.submod(kpok_i, ring.mulmod(e, gamma_i))
 
 
+@graphed("gg18")
 def _blk_schnorr_verify(A_comp, s_pok, Gamma_i, comp_i, idx) -> torch.Tensor:
     """Schnorr PoK verify: s·G + e·Γ ?= A → (B,) bool."""
     e = _hash_scalar(b"schnorr", idx, A_comp, comp_i)
@@ -621,12 +651,14 @@ def _blk_schnorr_verify(A_comp, s_pok, Gamma_i, comp_i, idx) -> torch.Tensor:
     return _eq_all(sp.compress(lhs), A_comp)
 
 
+@graphed("gg18")
 def _blk_schnorr(kpok_i, gamma_i, Gamma_i, comp_i, idx):
     """Batched Schnorr PoK of γ_i: prove, then verify (honest fabric)."""
     A_comp, s_pok = _blk_schnorr_prove(kpok_i, gamma_i, comp_i, idx)
     return _blk_schnorr_verify(A_comp, s_pok, Gamma_i, comp_i, idx)
 
 
+@graphed("gg18")
 def _blk_va(m, r, k_i, sigma_i, l_i, rho_i, R_pt, blind_i, idx):
     """Phase 5A per party: s_i, V_i = s_i·R + l_i·G, A_i = ρ_i·G, commit."""
     ring = _ring(m)
@@ -637,6 +669,7 @@ def _blk_va(m, r, k_i, sigma_i, l_i, rho_i, R_pt, blind_i, idx):
     return s_i, V_i, A_i, vc, ac, dev_hash(b"VA", idx, blind_i, vc, ac)
 
 
+@graphed("gg18")
 def _blk_pedersen_prove(ka, kb, s_i, l_i, R_pt, vc, ac, idx):
     """Phase-5B PedersenPoK of (s_i, l_i), prover side → (Apok_comp, sa, sb)."""
     ring = _ring(ka)
@@ -648,6 +681,7 @@ def _blk_pedersen_prove(ka, kb, s_i, l_i, R_pt, vc, ac, idx):
     return Apok_comp, sa, sb
 
 
+@graphed("gg18")
 def _blk_pedersen_verify(Apok_comp, sa, sb, V_i, R_pt, vc, ac, idx) -> torch.Tensor:
     """Phase-5B PedersenPoK verify: sa·R + sb·G + e·V ?= Apok."""
     e5 = _hash_scalar(b"pedersen", idx, Apok_comp, vc, ac)
@@ -658,11 +692,13 @@ def _blk_pedersen_verify(Apok_comp, sa, sb, V_i, R_pt, vc, ac, idx) -> torch.Ten
     return _eq_all(sp.compress(lhs), Apok_comp)
 
 
+@graphed("gg18")
 def _blk_va_check(blind_i, vc, ac, idx, commit) -> torch.Tensor:
     """Phase-5B decommit check of a (V_c, A_c) commitment."""
     return _eq_all(dev_hash(b"VA", idx, blind_i, vc, ac), commit)
 
 
+@graphed("gg18")
 def _blk_pedersen(ka, kb, s_i, l_i, V_i, R_pt, vc, ac, blind_i, idx, commit):
     """Phase 5B per party: decommit check, then the PedersenPoK of
     (s_i, l_i) proved and verified (honest fabric)."""
@@ -671,6 +707,15 @@ def _blk_pedersen(ka, kb, s_i, l_i, V_i, R_pt, vc, ac, blind_i, idx, commit):
     return ok & _blk_pedersen_verify(Apok_comp, sa, sb, V_i, R_pt, vc, ac, idx)
 
 
+@functools.lru_cache(maxsize=None)
+def _small_bits(x: int, device: torch.device) -> torch.Tensor:
+    """The LSB-first bits of a small public int, uploaded once per (x,
+    device) and shared; read-only."""
+    return torch.as_tensor(sp.scalars_to_bits([x], n_bits=max(1, x.bit_length()))[0],
+                           device=device)
+
+
+@graphed("gg18")
 def _blk_W_from_vss(C_comp: torch.Tensor, xj: int, lam_bits: torch.Tensor):
     """W_j = λ_j · Σ_k x_j^k · C_k from aggregated VSS commitments.
 
@@ -680,9 +725,7 @@ def _blk_W_from_vss(C_comp: torch.Tensor, xj: int, lam_bits: torch.Tensor):
     points, ok mask of the decompressions)."""
     pts, ok_all = sp.decompress(C_comp)
     ok = torch.all(ok_all, dim=0)
-    xj_bits = torch.as_tensor(
-        sp.scalars_to_bits([xj], n_bits=max(1, xj.bit_length()))[0], device=C_comp.device
-    )
+    xj_bits = _small_bits(xj, C_comp.device)
     t1 = C_comp.shape[0]
     acc = sp.SecpPointJ(*(c[t1 - 1] for c in pts))
     for k in range(t1 - 2, -1, -1):
@@ -690,6 +733,7 @@ def _blk_W_from_vss(C_comp: torch.Tensor, xj: int, lam_bits: torch.Tensor):
     return sp.scalar_mul(lam_bits, acc), ok
 
 
+@graphed("gg18")
 def _blk_V(V_sum, m, r, Y):
     """V = ΣV_i - m·G - r·Y (phase 5C prelude)."""
     return sp.add(
@@ -698,6 +742,7 @@ def _blk_V(V_sum, m, r, Y):
     )
 
 
+@graphed("gg18")
 def _blk_ut(rho_i, l_i, V, A_sum, blind_i, idx):
     """Phase 5C per party: U_i = ρ_i·V, T_i = l_i·ΣA, commit."""
     U_i = sp.scalar_mul(_bits256(rho_i), V)
@@ -706,15 +751,17 @@ def _blk_ut(rho_i, l_i, V, A_sum, blind_i, idx):
     return U_i, T_i, uc, tc, dev_hash(b"UT", idx, blind_i, uc, tc)
 
 
+@graphed("gg18")
 def _blk_ut_check(blind_i, uc, tc, idx, commit):
     return _eq_all(dev_hash(b"UT", idx, blind_i, uc, tc), commit)
 
 
+@graphed("gg18")
 def _blk_final(s, m, r, Y, rec):
     """Low-s normalize + batched ECDSA verification x(u1·G+u2·Y) == r."""
     ring = _ring(s)
     ok = ~torch.all(s == 0, dim=-1)
-    half = torch.as_tensor(bn.to_limbs(Q // 2, P256), device=s.device)
+    half = bn.const_limbs(Q // 2, P256, s.device)
     high = bn.compare(s, half) > 0
     s = torch.where(high[..., None], ring.negmod(s), s)
     rec = torch.where(high, rec ^ 1, rec)
@@ -726,13 +773,17 @@ def _blk_final(s, m, r, Y, rec):
     return ok, s, rec
 
 
+@graphed("gg18")
 def _step_final(st: Dict[str, torch.Tensor], Y) -> Dict[str, torch.Tensor]:
     """Phase-5E combine and in-protocol verify as one round step over the
-    carried state {s, m, r, rec, ok} → {r, s, rec, ok}."""
+    carried state {s, m, r, rec, ok} → {r, s, rec, ok}. The JAX package
+    donates ``st``; torch has no donation, so a replay copies it into the
+    graph's static inputs."""
     ok_f, s, rec = _blk_final(st["s"], st["m"], st["r"], Y, st["rec"])
     return {"r": st["r"], "s": s, "rec": rec, "ok": st["ok"] & ok_f}
 
 
+@graphed("gg18")
 def _withcheck_curve(s1_q, e_q, U_pt, W_pt):
     """MtAwc curve binding: s1·G ?= U + e·W → (B,) bool."""
     lhs = sp.base_mul(_bits256(s1_q))
@@ -1126,7 +1177,7 @@ class GG18BatchCoSigners:
         Gamma_sum = Gamma[0]
         for i in range(1, q):
             delta = ring.addmod(delta, delta_i[i])
-            Gamma_sum = sp.add(Gamma_sum, Gamma[i])
+            Gamma_sum = _blk_point_add(Gamma_sum, Gamma[i])
         ok_R, R_pt, r, rec = _blk_R(delta, Gamma_sum)
         ok = ok & ok_R
         kpok = rand["kpok"]
@@ -1157,8 +1208,8 @@ class GG18BatchCoSigners:
             )
         V_sum, A_sum = V_i[0], A_i[0]
         for i in range(1, q):
-            V_sum = sp.add(V_sum, V_i[i])
-            A_sum = sp.add(A_sum, A_i[i])
+            V_sum = _blk_point_add(V_sum, V_i[i])
+            A_sum = _blk_point_add(A_sum, A_i[i])
         V = _blk_V(V_sum, m, r, Y)
         U_pts, T_pts, U_c, T_c, ut_commit = [], [], [], [], []
         for i in range(q):
@@ -1174,9 +1225,9 @@ class GG18BatchCoSigners:
                                     ut_commit[i])
         U_s, T_s = U_pts[0], T_pts[0]
         for i in range(1, q):
-            U_s = sp.add(U_s, U_pts[i])
-            T_s = sp.add(T_s, T_pts[i])
-        ok = ok & sp.equal(U_s, T_s)
+            U_s = _blk_point_add(U_s, U_pts[i])
+            T_s = _blk_point_add(T_s, T_pts[i])
+        ok = ok & _blk_point_eq(U_s, T_s)
         s = s_i[0]
         for i in range(1, q):
             s = ring.addmod(s, s_i[i])

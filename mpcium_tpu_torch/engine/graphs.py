@@ -1,16 +1,18 @@
 """Per-shape CUDA graphs: the port's counterpart of ``jax.jit``.
 
-The JAX package's EdDSA engine is nine jitted functions; each call
-dispatches one executable, compiled once per argument shape. Eager
-PyTorch dispatches every tensor op from Python instead (77,432 of them
-for a 2-party sign of one session), and under one GIL shared by the
-nodes of a cluster that enqueue is what a sign costs. :func:`graphed`
+The JAX package's EdDSA engine is nine jitted functions, its GG18
+engine 26 jitted curve and round blocks; each call dispatches one
+executable, compiled once per argument shape. Eager PyTorch dispatches
+every tensor op from Python instead (77,432 of them for a 2-party EdDSA
+sign of one session), and under one GIL shared by the nodes of a
+cluster that enqueue is what a sign costs. :func:`graphed`
 gives a function the jit's behaviour on the card: the first call for a
 key captures the body into a CUDA graph, every later call copies its
 inputs into the graph's static buffers and replays it with one launch.
 
-The key is the function, the structure of its arguments (tuples, lists
-and dicts, as pytrees), each tensor's shape and dtype, the device, and
+The key is the function, the structure of its arguments (tuples, lists,
+dicts and NamedTuples such as ``SecpPointJ``, as pytrees; a NamedTuple's
+type is part of it), each tensor's shape and dtype, the device, and
 the value of every non-tensor argument. The bodies stay plain torch:
 what runs inside a graph is the code the CPU tests hold to the JAX
 package byte for byte.
@@ -99,15 +101,18 @@ def eager_bodies() -> Iterator[None]:
 
 def _flatten(obj, leaves: list):
     """(obj, leaves) → a hashable spec of ``obj``; its tensors appended to
-    ``leaves``. Tuples, lists and dicts are containers (a tuple subclass
-    comes back as a plain tuple); a tensor is a leaf; anything else is
-    part of the spec by value."""
+    ``leaves``. Tuples, lists and dicts are containers; a NamedTuple
+    (``SecpPointJ``) keeps its type in the spec and comes back as that
+    type, any other tuple subclass as a plain tuple; a tensor is a leaf;
+    anything else is part of the spec by value."""
     if isinstance(obj, torch.Tensor):
         leaves.append(obj)
         return ("T",)
     if isinstance(obj, dict):
         keys = tuple(obj)
         return ("D", keys, tuple(_flatten(obj[k], leaves) for k in keys))
+    if isinstance(obj, tuple) and hasattr(type(obj), "_fields"):
+        return ("NT", type(obj), tuple(_flatten(v, leaves) for v in obj))
     if isinstance(obj, (tuple, list)):
         return ("list" if isinstance(obj, list) else "tuple",
                 tuple(_flatten(v, leaves) for v in obj))
@@ -120,6 +125,8 @@ def _unflatten(spec, leaves: Iterator[torch.Tensor]):
         return next(leaves)
     if tag == "D":
         return {k: _unflatten(s, leaves) for k, s in zip(spec[1], spec[2])}
+    if tag == "NT":
+        return spec[1](*(_unflatten(s, leaves) for s in spec[2]))
     if tag == "tuple":
         return tuple(_unflatten(s, leaves) for s in spec[1])
     if tag == "list":
@@ -146,7 +153,7 @@ def _shape_str(leaves, spec, dev) -> str:
     def walk(s):
         if s[0] == "V":
             vals.append(repr(s[2]))
-        elif s[0] == "D":
+        elif s[0] in ("D", "NT"):
             for c in s[2]:
                 walk(c)
         elif s[0] in ("tuple", "list"):

@@ -4,8 +4,9 @@ can see it (the port's counterpart of the JAX package's
 
 The port compiles two kinds of thing: K0's CUDA library, built by nvcc
 at its first use in a process (``ops/mulmod.build``), and the EdDSA
-engine's CUDA graphs, one captured per function and argument shape
-(``engine/graphs``, the counterpart of XLA's per-shape executables).
+and GG18 engines' CUDA graphs, one captured per function and argument
+shape (``engine/graphs``, the counterpart of XLA's per-shape
+executables).
 Both report here through the two-call ``begin`` / ``finish`` protocol;
 each finish records one ledger entry::
 
@@ -13,6 +14,7 @@ each finish records one ledger entry::
      "compile_s": 4.1, "cache": "miss", "at": "..."}
     {"engine": "eddsa.verify_signatures",
      "shape": "uint8[16, 64],uint8[16, 32],uint8[16, 64]@cuda:0", ...}
+    {"engine": "gg18._blk_final", "shape": "int32[512, 22],...@cuda:0", ...}
 
 ``cache`` is ``hit`` when the shared library of that digest already
 existed (another process, or an earlier run, built it) and ``miss`` when

@@ -117,7 +117,10 @@ def device_profile(logdir: str, device=None) -> Iterator[bool]:
         prof.stop()
         raise
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        from ..engine.graphs import no_capture
+
+        with no_capture():  # not while another thread captures a graph
+            torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     prof.stop()
     t1 = time.perf_counter()

@@ -420,7 +420,7 @@ class BatchedECDSASigningParty(BatchBlockMixin, PartyBase):
             s_pok = self._parse_scalar(p["spok"], j)
             self._ok = self._ok & gb._blk_schnorr_verify(A_comp, s_pok, G_pt, G_comp, bind)
             delta = ring.addmod(delta, self._parse_scalar(self._round_payloads(R3)[j]["d"], j))
-            Gamma_sum = sp.add(Gamma_sum, G_pt)
+            Gamma_sum = gb._blk_point_add(Gamma_sum, G_pt)
         ok_R, R_pt, r, rec = gb._blk_R(delta, Gamma_sum)
         self._ok = self._ok & ok_R
         self._R_pt, self._r, self._rec = R_pt, r, rec
@@ -463,8 +463,8 @@ class BatchedECDSASigningParty(BatchBlockMixin, PartyBase):
             self._ok = self._ok & gb._blk_pedersen_verify(
                 apok, self._parse_scalar(p["sa"], j), self._parse_scalar(p["sb"], j),
                 V_pt, self._R_pt, vc, ac, bind)
-            V_sum = sp.add(V_sum, V_pt)
-            A_sum = sp.add(A_sum, A_pt)
+            V_sum = gb._blk_point_add(V_sum, V_pt)
+            A_sum = gb._blk_point_add(A_sum, A_pt)
         V = gb._blk_V(V_sum, self.m, self._r, self.Y)
         self._ut_blind = self._blind()
         Ui, Ti, uc, tc, cmt = gb._blk_ut(self._rho, self._li, V, A_sum, self._ut_blind,
@@ -490,9 +490,9 @@ class BatchedECDSASigningParty(BatchBlockMixin, PartyBase):
             blind = self._block(p["blind"], 32, j)
             commit = self._block(self._round_payloads(R7)[j]["c"], 32, j)
             self._ok = self._ok & gb._blk_ut_check(blind, uc, tc, self._bind_row(j), commit)
-            U_s = sp.add(U_s, U_pt)
-            T_s = sp.add(T_s, T_pt)
-        self._ok = self._ok & sp.equal(U_s, T_s)
+            U_s = gb._blk_point_add(U_s, U_pt)
+            T_s = gb._blk_point_add(T_s, T_pt)
+        self._ok = self._ok & gb._blk_point_eq(U_s, T_s)
         return self.broadcast(R9, {"s": self._ser_scalar(self._s_own)})
 
     def _finalize(self) -> None:

@@ -8,12 +8,12 @@ fixture, with the GG18 domains it can carry, and every signature they
 make must verify). The JAX package warms to fill XLA's persistent
 cache. The port compiles K0's CUDA library (built at its first launch
 and cached on disk by source digest, ``ops/mulmod.build``) and, per
-shape, the EdDSA engine's CUDA graphs (``engine/graphs``), which live in
+shape, the EdDSA and GG18 engines' CUDA graphs (``engine/graphs``), which live in
 the process that captured them. So "warm" here means the bucket has run
 once in this process on that device, which pays its first-use costs
 there: the device context and allocator, the per-modulus Barrett
 contexts and comb tables, the lazily built curve tables, K0's build or
-load, and the capture of the bucket's EdDSA graphs.
+load, and the capture of the bucket's EdDSA or GG18 graphs.
 
 The walk is budget-aware and failure-isolated, as in JAX: a deadline
 miss marks the remaining entries ``skipped`` (the daemon goes ready
@@ -21,10 +21,12 @@ anyway: cold, but alive), a runner exception marks that entry
 ``failed`` without taking boot down, and an entry this process has
 already run on that device is ``already``. The report lands as
 ``WARM_MANIFEST.json`` with JAX's keys and totals. Where an entry
-reached graphed functions (the EdDSA engine on CUDA), its row carries
-``graphs`` — ``hits``, the graphs it found captured and replayed, and
-``misses``, the graphs it captured — and ``cache`` is ``miss`` if it
-captured any, else ``hit``; the totals add those graph counts. Otherwise
+reached graphed functions (the EdDSA and GG18 engines and parties on
+CUDA), its row carries ``graphs`` — ``hits``, the graphs it found
+captured and replayed, and ``misses``, the graphs it captured — and
+``cache`` is ``miss`` if it captured any, else ``hit``; the totals add
+those graph counts, and an entry that also launched K0 carries K0's
+build verdict as ``k0``. Otherwise
 ``cache`` is K0's build verdict (``hit`` / ``miss``, from
 ``perf/compile_watch``) where the entry launched K0, else ``"none"``, and
 the totals count that verdict. ``unpredicted`` stays 0 (the port's
@@ -218,6 +220,12 @@ def _k0_launches() -> int:
         return K.launches + sum(K.powmod_launches_by_mode_width.values())
 
 
+def _k0_builds() -> int:
+    """K0 builds (or loads) in the compile ledger; graph captures are
+    ledgered there too."""
+    return sum(1 for le in compile_watch.entries() if le["engine"] == "mulmod")
+
+
 def _graph_verdicts(before: Dict[tuple, int], after: Dict[tuple, int]) -> Tuple[int, int]:
     """(hits, misses) between two ``graphs.snapshot()``: graphs that
     were captured before and replayed since, graphs captured since."""
@@ -272,7 +280,7 @@ def prewarm(
             row["reason"] = f"no warm runner for engine {e.engine!r}"
             totals["failed"] += 1
             continue
-        k0_before, ledger_before = _k0_launches(), len(compile_watch.entries())
+        k0_before, builds_before = _k0_launches(), _k0_builds()
         graphs_before = graphs.snapshot()
         t0 = now()
         try:
@@ -291,20 +299,22 @@ def prewarm(
             _RAN.add(key)
         k0 = next((le for le in reversed(compile_watch.entries()) if le["engine"] == "mulmod"),
                   None)
+        k0_cache = k0["cache"] if k0 is not None and _k0_launches() > k0_before else "none"
         g_hits, g_misses = _graph_verdicts(graphs_before, graphs.snapshot())
         if g_hits or g_misses:
             row["graphs"] = {"hits": g_hits, "misses": g_misses}
             row["cache"] = "miss" if g_misses else "hit"
+            if k0_cache != "none":
+                row["k0"] = k0_cache
             totals["hits"] += g_hits
             totals["misses"] += g_misses
         else:
-            row["cache"] = (k0["cache"] if k0 is not None and _k0_launches() > k0_before
-                            else "none")
+            row["cache"] = k0_cache
             if row["cache"] == "hit":
                 totals["hits"] += 1
             elif row["cache"] == "miss":
                 totals["misses"] += 1
-        if k0 is not None and len(compile_watch.entries()) > ledger_before:
+        if _k0_builds() > builds_before:
             row["compile_s"] = k0["compile_s"]  # K0 was built (or loaded) by this entry
     report = {
         "comment": "pre-warm report: one verdict per warm-manifest "

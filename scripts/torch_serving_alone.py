@@ -14,7 +14,7 @@ if __name__ == "__main__":
     W = int(sys.argv[1]) if len(sys.argv) > 1 else cs.SERVING_W
     t0 = time.perf_counter()
     try:
-        res = cs._serving_task(W, 1)
+        res = cs._serving_task(W, 1, gg18_rows=False)  # phase 36: torch_gg18_graphs_alone.py
         cs.serving_finish(res, {"alone": True})
     finally:
         print("script_s", time.perf_counter() - t0, flush=True)

@@ -11,11 +11,14 @@ its own import of that checkout's package and its own kernel build, in
 the order given, so ``parent . . parent`` compares two versions inside
 one call on one card. A run does what chip_smoke.py's slice phase does:
 dealer keygen for B wallets, a first sign (it builds the per-key comb
-tables), then the warm sign that is timed, with every (r, s) verified on
+tables and, where the checkout graphs the engine, captures its graphs),
+then the warm sign that is timed, with every (r, s) verified on
 the host. It prints one JSON line per run: first and warm sign seconds,
 sigs/s, the engine's phase seconds, the kernel launches of the warm sign
 as the checkout's counters report them, and the card's name and power
-limit. Imports nothing of JAX.
+limit; where the checkout graphs the GG18 engine, the keys its signs
+captured with their capture seconds and pool bytes. Imports nothing of
+JAX.
 """
 from __future__ import annotations
 
@@ -65,6 +68,13 @@ verified = sum(
                     int.from_bytes(out["r"][i].tobytes(), "big"),
                     int.from_bytes(out["s"][i].tobytes(), "big"))
     for i in range(B))
+try:  # the checkout's per-shape graphs: keys captured, their capture seconds
+    from mpcium_tpu_torch.engine import graphs
+    keys = [e for e in graphs.entries() if e["fn"].startswith("gg18.")]
+    captured = {"keys": len(keys), "capture_s": sum(e["capture_s"] for e in keys),
+                "pool_bytes": sum(e["pool_bytes"] for e in keys)}
+except ImportError:
+    captured = None
 card = "cpu"
 if device == "cuda":
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -74,7 +84,8 @@ print(json.dumps({
     "root": root, "B": B, "seed": seed, "card": card, "first_sign_s": first,
     "sign_s": warm, "sigs_per_s": B / warm, "phases_s": phases,
     "launches": K.launches + sum(by_mode.values()), "plain_calls": K.plain_calls,
-    "ok_all": bool(out["ok"].all()), "verified": verified,
+    "ok_all": bool(out["ok"].all()), "verified": verified, "gg18_graphs": captured,
+    "memory_reserved": torch.cuda.memory_reserved() if device == "cuda" else None,
 }), flush=True)
 """
 

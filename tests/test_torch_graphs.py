@@ -18,6 +18,7 @@ import os
 import sys
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 if __name__ == "__main__":  # as a script: the repo root on the path, JAX on the CPU
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -32,6 +33,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from mpcium_tpu_torch.core import bignum as bn
 from mpcium_tpu_torch.core import ed25519 as ed
 from mpcium_tpu_torch.core import hostmath as hm
+from mpcium_tpu_torch.core import secp256k1 as sp
 from mpcium_tpu_torch.engine import eddsa_batch as eb
 from mpcium_tpu_torch.engine import graphs
 from mpcium_tpu_torch.ops import hash_suite as hs
@@ -135,6 +137,64 @@ def test_keys_differ_by_shape_dtype_device_and_non_tensor_argument():
     assert len({k, *others}) == 1 + len(others)
     # without a backend that takes the device there is no key to replay
     assert graphs.call_key("f", (x,), {})[3] is None
+
+
+class _PairA(NamedTuple):
+    u: torch.Tensor
+    v: torch.Tensor
+
+
+class _PairB(NamedTuple):
+    u: torch.Tensor
+    v: torch.Tensor
+
+
+@graphs.graphed("test")
+def _point_step(p, k=2):
+    return sp.SecpPointJ(p.X + p.Y, p.Y, p.Z * k), p.X.sum(-1)
+
+
+def _specs_with(spec, tag: str) -> bool:
+    if spec[0] == tag:
+        return True
+    kids = {"D": 2, "NT": 2, "tuple": 1, "list": 1}.get(spec[0])
+    return kids is not None and any(_specs_with(c, tag) for c in spec[kids])
+
+
+def test_a_namedtuple_is_part_of_the_key_and_comes_back_as_its_type():
+    x = torch.zeros(2, 3, dtype=torch.int32)
+    with graphs.use_backend(StandIn(every=True)):
+        keys = {graphs.call_key("f", (_PairA(x, x),), {})[0],
+                graphs.call_key("f", (_PairB(x, x),), {})[0],
+                graphs.call_key("f", ((x, x),), {})[0]}
+        spec = graphs.call_key("f", (_PairA(x, x),), {})[2]
+    assert len(keys) == 3
+    assert type(graphs._unflatten(spec, iter([x, x + 1]))[0][0]) is _PairA
+    pt = sp.SecpPointJ(*(torch.arange(6, dtype=torch.float64).reshape(2, 3) + i
+                         for i in range(3)))
+    pt2 = sp.SecpPointJ(*(c * 3 for c in pt))
+    with graphs.use_backend(StandIn()):
+        first, second = _point_step(pt), _point_step(pt2)
+    for got, p in ((first, pt), (second, pt2)):
+        want = _point_step.eager(p)
+        assert type(got[0]) is sp.SecpPointJ
+        assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+        assert torch.equal(got[1], want[1])
+    assert graphs.counts()["test._point_step"] == {"captures": 1, "replays": 1}
+
+
+def test_the_eddsa_keys_hold_no_namedtuple():
+    """The EdDSA functions take tensors, tuples and dicts: their keys are
+    what they were before NamedTuples joined the spec."""
+    with graphs.use_backend(StandIn(every=True)):
+        for name, args in gg.calls():
+            spec = graphs.call_key(name, gg.to_args(args, _t), {})[2]
+            assert not _specs_with(spec, "NT"), name
+        parts, R = gg.to_args(dict(gg.calls())["combine_signatures"], _t)
+        key = graphs.call_key("eddsa.combine_signatures", (parts, R), {})[0]
+    assert key == ("eddsa.combine_signatures",
+                   ("tuple", (("tuple", (("T",), ("T",))), ("D", (), ()))),
+                   ((tuple(parts.shape), parts.dtype), (tuple(R.shape), R.dtype)), "cpu")
 
 
 def test_a_miss_captures_once_then_replays_contiguous_buffers_and_fresh_outputs():

@@ -9,7 +9,8 @@ the CPU:
 - the walk: a spent budget marks entries ``skipped``, a raising runner
   marks its entry ``failed`` and the walk goes on, a second pass finds
   ``already``; ``cache`` is K0's build verdict where an entry launched
-  K0; ``prewarm_for_daemon`` writes its report and never raises;
+  K0, the graphs' verdict where it captured or replayed graphs (with
+  K0's as ``k0`` beside it); ``prewarm_for_daemon`` writes its report and never raises;
   ``warm_for_drill`` keeps its keys;
 - the cheap real runners at bucket 1 on the CPU (every runner, the
   Paillier ones too, is slow-marked; ``chip_smoke.py`` runs them all on
@@ -220,6 +221,42 @@ def test_cache_is_k0_s_build_verdict_where_k0_launched(monkeypatch):
         ("dkg.run", "none", False), ("eddsa.sign", "miss", False)]
     assert rep["totals"]["misses"] == 1 and rep["totals"]["hits"] == 0
     K.reset_counters()
+
+
+def test_a_graphed_entry_keeps_k0_s_verdict_beside_its_graphs(monkeypatch):
+    """An ECDSA entry launches K0 and captures GG18 graphs: its row has
+    both verdicts; an entry that only captures has no ``k0`` and no
+    ``compile_s`` (its ledger entries are captures, not K0's build)."""
+    import torch
+    from test_torch_graphs import StandIn
+
+    from mpcium_tpu_torch.core import bignum as bn
+    from mpcium_tpu_torch.engine import gg18_batch as gb
+    from mpcium_tpu_torch.engine import graphs
+
+    def bits(B):
+        gb._bits_pack(torch.zeros(B, 14, dtype=torch.int32), bn.LimbProfile(bits=7, n_limbs=2))
+
+    def k0_and_graphs(e, dev):
+        compile_watch.finish(compile_watch.begin("mulmod", "digest"), "miss")
+        with K._count_lock:
+            K.launches += 1
+        bits(2)
+
+    monkeypatch.setitem(pw.RUNNERS, "dkg.run", k0_and_graphs)
+    monkeypatch.setitem(pw.RUNNERS, "eddsa.sign", lambda e, dev: (bits(2), bits(3)))
+    graphs.clear()
+    try:
+        with graphs.use_backend(StandIn()):
+            rep = pw.prewarm(_eddsa_and_dkg_engines((2,)), 60, device="cpu")
+    finally:
+        graphs.clear()
+        K.reset_counters()
+    assert [(r["engine"], r["cache"], r["graphs"], r.get("k0"), "compile_s" in r)
+            for r in rep["results"]] == [
+        ("dkg.run", "miss", {"hits": 0, "misses": 1}, "miss", True),
+        ("eddsa.sign", "miss", {"hits": 1, "misses": 1}, None, False)]
+    assert rep["totals"]["hits"] == 1 and rep["totals"]["misses"] == 2
 
 
 def test_prewarm_needs_a_device_without_a_gpu():

@@ -200,3 +200,21 @@ def jax_sharded_record() -> dict:
     rec["gg18"] = sg.gg18_record(jax_gg18_curve_leg(signer, digests))
     rec["mesh"]["gg18"] = list(mesh.devices.shape)
     return rec
+
+
+def jax_gg18_graphs_record() -> dict:
+    """The JAX package's jitted GG18 functions (``engine/gg18_batch``) on
+    the inputs of ``mpcium_tpu_torch/utils/gg18_graphs_golden.py`` at its
+    B, on the CPU: the golden ``gg18_graphs_b2.json``."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from mpcium_tpu.core import bignum as jbn
+    from mpcium_tpu.core import secp256k1_jax as jsp
+    from mpcium_tpu.engine import gg18_batch as jgb
+    from mpcium_tpu_torch.utils import gg18_graphs_golden as g18
+
+    pkg = g18.Pkg(array=lambda a: jnp.asarray(np.array(a)),
+                  prof=lambda bits, n: jbn.LimbProfile(bits=bits, n_limbs=n),
+                  points=jsp.from_host, to_host=jsp.to_host)
+    return g18.record({name: getattr(jgb, name) for name in g18.FUNCTIONS}, pkg)
